@@ -13,21 +13,34 @@
 //
 // What bounds them on this card: at S = 4096, D = 128, causal, dQ does
 // ~4.1e11 FLOP and dK/dV ~5.5e11 FLOP per call against ~0.3 GB of traffic,
-// so both are bound by the tensor-core rate.  Design (bf16): mma.sync
-// m16n8k16 with fp32 accumulators in registers, 4 warps of 16 rows each.
-// The TPU kernels carried their accumulators across sequential grid steps;
-// here a loop inside the block replaces that axis.  The dK/dV block owns
-// one kv row's key tile and loops over every query head of its GQA group
-// and every live query tile, so the group's reduction needs no atomics and
-// no second pass.  S^T and dP^T are computed transposed (keys on the
-// accumulator rows) so P^T and dS^T feed the dV/dK products straight from
-// registers.  Loads are synchronous through padded shared memory; TMA and
-// wgmma are the next step.
+// so both are bound by the tensor-core rate.  The TPU kernels carried their
+// accumulators across sequential grid steps; here a loop inside the block
+// replaces that axis.
 //
-// The fp32 path, and bf16 at head sizes without a tensor-core instance,
-// use plain SIMT kernels with the same semantics (fp32 FMA).
+// dK/dV (bf16, D in {64, 128}) is a Hopper kernel: one block owns 128 keys
+// of one kv row, as three warpgroups.  The producer warpgroup gives its
+// registers away (setmaxnreg); one of its threads loads the block's K and V
+// tiles once by TMA and then streams 64-row (Q, dO) tiles with their lse
+// and delta rows (and query segment ids) through a two-stage mbarrier ring,
+// over every query head of the GQA group and every live query tile, so the
+// group's reduction happens in the block: no atomics, no second pass, and
+// bit-identical results run to run.  Each consumer warpgroup owns 64 keys
+// and keeps its dK and dV accumulators (64 x D fp32) in registers for the
+// whole block.  Per query tile it computes S^T = K Q^T and dP^T = V dO^T
+// with wgmma from shared memory (keys on the accumulator rows), P^T and
+// dS^T in registers (exp2 of pre-scaled scores, the mask tested only on
+// tiles the diagonal, the window band, the ragged edge or segment ids cut),
+// and dV += P^T dO, dK += dS^T Q as wgmma with P^T and dS^T, cast to bf16,
+// as the register A operand and dO, Q read MN-major (the transpose flag).
+// dK and dV leave through shared memory in 16-byte stores.
+//
+// dQ (bf16, D in {64, 128}) is mma.sync m16n8k16 with fp32 accumulators in
+// registers, 4 warps of 16 query rows each, tiles loaded synchronously.
+// The fp32 path, and bf16 at other head sizes, use plain SIMT kernels with
+// the same semantics (fp32 FMA).
 
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 constexpr int SIMT_BQ = 32;
 constexpr int SIMT_BK = 32;
@@ -205,22 +218,15 @@ __global__ void __launch_bounds__(SIMT_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernels: bf16, D in {64, 128}.
+// dQ tensor-core kernel: bf16, D in {64, 128}, mma.sync.
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_THREADS = 128;
 constexpr int DQ_BQ = 64, DQ_BK = 64;     // dQ: 16 query rows per warp
-constexpr int DKV_BK = 64, DKV_BQ = 32;   // dK/dV: 16 key rows per warp
 
 template <int D>
 static size_t dq_mma_smem() {
   return sizeof(__nv_bfloat16) * (2 * DQ_BQ + 2 * DQ_BK) * (D + 8);
-}
-
-template <int D>
-static size_t dkv_mma_smem() {
-  return sizeof(__nv_bfloat16) * (2 * DKV_BK + 2 * DKV_BQ) * (D + 8) +
-         sizeof(float) * 2 * DKV_BQ;
 }
 
 template <int D>
@@ -341,138 +347,230 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// dK/dV Hopper kernel: bf16, D in {64, 128}, wgmma + TMA ring.
+// ---------------------------------------------------------------------------
+
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_dkv_mma(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dk,
-                  __nv_bfloat16* __restrict__ dv, MaskArgs m, int G,
-                  float scale) {
-  constexpr int BK = DKV_BK, BQ = DKV_BQ, LD = D + 8;
-  constexpr int ND = D / 8, NQ = BQ / 8, KD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BK * LD;
-  __nv_bfloat16* Qs = Vs + BK * LD;
-  __nv_bfloat16* dOs = Qs + BQ * LD;
-  float* Ls = reinterpret_cast<float*>(dOs + BQ * LD);
-  float* Ds = Ls + BQ;
+struct DkvTiles {
+  static constexpr int BK = 128;           // keys; 64 per consumer
+  static constexpr int BQ = 64;            // query rows per ring stage
+  static constexpr int STAGES = 2;
+  static constexpr int KV_BYTES = BK * D * 2;   // K or V tile
+  static constexpr int QT_BYTES = BQ * D * 2;   // Q or dO tile
+  static constexpr int ROW_BYTES = BQ * 4;      // lse, delta or segment ids
+  // One stage: Q, dO, then lse, delta, query segment ids.
+  static constexpr int ST_Q = 0, ST_DO = QT_BYTES, ST_LSE = 2 * QT_BYTES;
+  static constexpr int ST_DELTA = ST_LSE + ROW_BYTES;
+  static constexpr int ST_SEG = ST_DELTA + ROW_BYTES;
+  static constexpr int STAGE_BYTES = (ST_SEG + ROW_BYTES + 1023) / 1024 * 1024;
+  static constexpr int OFF_K = 0, OFF_V = KV_BYTES;
+  static constexpr int OFF_STAGE = 2 * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_STAGE + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
 
-  const int kt = blockIdx.x;
-  const int kvrow = blockIdx.y;
-  const int k0 = kt * BK;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tlse,
+                    const __grid_constant__ CUtensorMap tdelta,
+                    const __grid_constant__ CUtensorMap tqseg,
+                    __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, MaskArgs m, int G,
+                    float scale, float scale_log2) {
+  using T = DkvTiles<D>;
+  constexpr int BK = T::BK, BQ = T::BQ, STAGES = T::STAGES, NB = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(sm + T::OFF_K);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(sm + T::OFF_V);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + T::OFF_BAR);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + STAGES;
+  auto stage = [&](int s) { return sm + T::OFF_STAGE + s * T::STAGE_BYTES; };
 
-  load_tile_bf16<D>(Ks, LD, k + (size_t)kvrow * m.Sk * D, k0, BK, m.Sk, tid,
-                    MMA_THREADS);
-  load_tile_bf16<D>(Vs, LD, v + (size_t)kvrow * m.Sk * D, k0, BK, m.Sk, tid,
-                    MMA_THREADS);
-  const int krow[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-  float adk[ND][4], adv[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      adk[nd][e] = 0.f;
-      adv[nd][e] = 0.f;
-    }
-
+  const int kvrow = blockIdx.x;
+  const int k0 = blockIdx.y * BK;          // the most causal work first
+  const bool seg = m.qseg != nullptr;
   int qt0, qt1;
   flash_q_range(m, k0, BK, BQ, &qt0, &qt1);
-  for (int gq = 0; gq < G; ++gq) {
-    const int bh = kvrow * G + gq;
-    const __nv_bfloat16* qb = q + (size_t)bh * m.Sq * D;
-    const __nv_bfloat16* ob = dout + (size_t)bh * m.Sq * D;
-    for (int qt = qt0; qt < qt1; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();
-      load_tile_bf16<D>(Qs, LD, qb, q0, BQ, m.Sq, tid, MMA_THREADS);
-      load_tile_bf16<D>(dOs, LD, ob, q0, BQ, m.Sq, tid, MMA_THREADS);
-      if (tid < BQ) {
-        const bool in = q0 + tid < m.Sq;
-        Ls[tid] = in ? lse[(size_t)bh * m.Sq + q0 + tid] : 0.f;
-        Ds[tid] = in ? delta[(size_t)bh * m.Sq + q0 + tid] : 0.f;
-      }
-      __syncthreads();
+  const int nq = qt1 > qt0 ? qt1 - qt0 : 0;
+  const int n_items = G * nq;              // (query head, query tile) pairs
 
-      // S^T = K Q^T and dP^T = V dO^T: keys on the accumulator rows.
-      float st[NQ][4], dpt[NQ][4];
-#pragma unroll
-      for (int nt = 0; nt < NQ; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          st[nt][e] = 0.f;
-          dpt[nt][e] = 0.f;
-        }
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a_frag(ak, Ks, LD, r0, kk * 16, g, t);
-        load_a_frag(av, Vs, LD, r0, kk * 16, g, t);
-#pragma unroll
-        for (int nt = 0; nt < NQ; ++nt) {
-          uint32_t b[2];
-          load_bt_frag(b, Qs, LD, nt * 8, kk * 16, g, t);
-          mma_16816(st[nt], ak, b);
-          load_bt_frag(b, dOs, LD, nt * 8, kk * 16, g, t);
-          mma_16816(dpt[nt], av, b);
-        }
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);                     // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kvbar, 2 * T::KV_BYTES);
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(Ks + b * BK * 64, &tk, kvbar, b * 64, k0, kvrow);
+        tma_load_3d(Vs + b * BK * 64, &tv, kvbar, b * 64, k0, kvrow);
       }
-#pragma unroll
-      for (int nt = 0; nt < NQ; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          const int qi = nt * 8 + 2 * t + (e & 1);
-          float p = 0.f, ds = 0.f;
-          if (flash_live(m, bh, kvrow, q0 + qi, krow[h])) {
-            p = expf(st[nt][e] * scale - Ls[qi]);
-            ds = p * (dpt[nt][e] - Ds[qi]) * scale;
-          }
-          st[nt][e] = p;
-          dpt[nt][e] = ds;
+      for (int i = 0; i < n_items; ++i) {
+        const int s = i % STAGES;
+        const int bh = kvrow * G + i / nq, q0 = (qt0 + i % nq) * BQ;
+        unsigned char* st = stage(s);
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * T::QT_BYTES +
+                                     (2 + (seg ? 1 : 0)) * T::ROW_BYTES);
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(st + T::ST_Q + b * BQ * 128, &tq, &full[s], b * 64, q0,
+                      bh);
+          tma_load_3d(st + T::ST_DO + b * BQ * 128, &tdo, &full[s], b * 64, q0,
+                      bh);
         }
-      // dV += P^T dO, dK += dS^T Q (query axis is the reduction).
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t ap[4], ads[4];
-        ap[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-        ap[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-        ap[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-        ap[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-        ads[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-        ads[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-        ads[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-        ads[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          uint32_t b[2];
-          load_b_frag(b, dOs, LD, kk * 16, nd * 8, g, t);
-          mma_16816(adv[nd], ap, b);
-          load_b_frag(b, Qs, LD, kk * 16, nd * 8, g, t);
-          mma_16816(adk[nd], ads, b);
-        }
+        tma_load_1d(st + T::ST_LSE, &tlse, &full[s], bh * m.Sq + q0);
+        tma_load_1d(st + T::ST_DELTA, &tdelta, &full[s], bh * m.Sq + q0);
+        if (seg) tma_load_1d(st + T::ST_SEG, &tqseg, &full[s], bh * m.Sq + q0);
       }
     }
+    return;
   }
 
+  // Consumer warpgroup c owns keys kc0 .. kc0 + 63.
+  regs_alloc<240>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kc0 = k0 + 64 * c;
+  const int klast = min(kc0 + 63, m.Sk - 1);
+  const int krow[2] = {kc0 + 16 * warp + g, kc0 + 16 * warp + g + 8};
+  int kseg[2] = {0, 0};
+  if (seg)
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int kp = krow[h];
-    if (kp < m.Sk) {
-      const size_t off = ((size_t)kvrow * m.Sk + kp) * D;
+    for (int h = 0; h < 2; ++h)
+      if (krow[h] < m.Sk) kseg[h] = m.kseg[(size_t)kvrow * m.Sk + krow[h]];
+
+  float adk[D / 2], adv[D / 2];
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        *reinterpret_cast<uint32_t*>(dk + off + nd * 8 + 2 * t) =
-            pack_bf16(adk[nd][2 * h], adk[nd][2 * h + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + nd * 8 + 2 * t) =
-            pack_bf16(adv[nd][2 * h], adv[nd][2 * h + 1]);
+  for (int i = 0; i < D / 2; ++i) {
+    adk[i] = 0.f;
+    adv[i] = 0.f;
+  }
+  const __nv_bfloat16* Kc = Ks + c * 64 * 64;   // this warpgroup's keys
+  const __nv_bfloat16* Vc = Vs + c * 64 * 64;
+  mbar_wait(kvbar, 0);
+
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i % STAGES;
+    const int q0 = (qt0 + i % nq) * BQ;
+    const unsigned char* st = stage(s);
+    const __nv_bfloat16* Qt = reinterpret_cast<const __nv_bfloat16*>(st + T::ST_Q);
+    const __nv_bfloat16* dOt =
+        reinterpret_cast<const __nv_bfloat16*>(st + T::ST_DO);
+    const float* Lt = reinterpret_cast<const float*>(st + T::ST_LSE);
+    const float* Dt = reinterpret_cast<const float*>(st + T::ST_DELTA);
+    const int* Sg = reinterpret_cast<const int*>(st + T::ST_SEG);
+    // Tile classes, as in the forward: dead, interior, or cut.
+    const bool dead = kc0 >= m.Sk || (m.causal && q0 + BQ - 1 < kc0) ||
+                      (m.window >= 0 && q0 - klast >= m.window);
+    const bool interior = !seg && q0 + BQ <= m.Sq && kc0 + 64 <= m.Sk &&
+                          (!m.causal || q0 >= kc0 + 63) &&
+                          (m.window < 0 || q0 + BQ - 1 - kc0 < m.window);
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    if (!dead) {
+      // S^T = K Q^T and dP^T = V dO^T: keys on the accumulator rows.
+      float sT[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int b = kk / 4, ko = (kk % 4) * 16;
+        wgmma_ss(sT, gmma_desc_kmajor(Kc + b * BK * 64 + ko),
+                 gmma_desc_kmajor(Qt + b * BQ * 64 + ko), kk > 0);
       }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int b = kk / 4, ko = (kk % 4) * 16;
+        wgmma_ss(dpt, gmma_desc_kmajor(Vc + b * BK * 64 + ko),
+                 gmma_desc_kmajor(dOt + b * BQ * 64 + ko), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait();
+      keep(sT);
+      keep(dpt);
+
+      // P^T = exp2(S^T scale log2e - lse log2e), dS^T = P^T (dP^T - delta)
+      // scale; a masked pair gives P = dS = 0.
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int h = (e >> 1) & 1;
+        const int qc = (e >> 2) * 8 + 2 * t + (e & 1);
+        bool live = true;
+        if (!interior) {
+          const int qp = q0 + qc, kp = krow[h];
+          live = qp < m.Sq && kp < m.Sk && (!m.causal || kp <= qp) &&
+                 (m.window < 0 || qp - kp < m.window) &&
+                 (!seg || Sg[qc] == kseg[h]);
+        }
+        const float p = live ? ex2(sT[e] * scale_log2 - Lt[qc] * LOG2E) : 0.f;
+        sT[e] = p;
+        dpt[e] = p * (dpt[e] - Dt[qc]) * scale;
+      }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack_bf16(sT[8 * kk + 2 * r], sT[8 * kk + 2 * r + 1]);
+          da[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+        }
+      // dV += P^T dO, dK += dS^T Q: the query axis is the reduction.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(adv, pa[kk], gmma_desc_mnmajor(dOt + kk * 16 * 64, BQ * 128));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs(adk, da[kk], gmma_desc_mnmajor(Qt + kk * 16 * 64, BQ * 128));
+      wgmma_commit();
+      wgmma_wait();
+      keep(adv);
+      keep(adk);
+      keep(pa);
+      keep(da);
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  // Epilogue: dK and dV through this warpgroup's own K and V rows, then
+  // 16-byte stores.
+  unsigned char* dKs = reinterpret_cast<unsigned char*>(Ks) + c * 64 * 128;
+  unsigned char* dVs = reinterpret_cast<unsigned char*>(Vs) + c * 64 * 128;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h, col = 8 * j + 2 * t;
+      const uint32_t off = (col / 64) * BK * 128 + swz_offset(r, col % 64);
+      *reinterpret_cast<uint32_t*>(dKs + off) =
+          pack_bf16(adk[4 * j + 2 * h], adk[4 * j + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dVs + off) =
+          pack_bf16(adv[4 * j + 2 * h], adv[4 * j + 2 * h + 1]);
+    }
+  named_bar_sync(1 + c, 128);
+  for (int idx = tw; idx < 64 * (D / 8); idx += 128) {
+    const int r = idx / (D / 8), ch = idx % (D / 8);
+    if (kc0 + r < m.Sk) {
+      const size_t go = ((size_t)kvrow * m.Sk + kc0 + r) * D + ch * 8;
+      const uint32_t off = (ch / 8) * BK * 128 + swz_offset(r, (ch % 8) * 8);
+      *reinterpret_cast<uint4*>(dk + go) =
+          *reinterpret_cast<const uint4*>(dKs + off);
+      *reinterpret_cast<uint4*>(dv + go) =
+          *reinterpret_cast<const uint4*>(dVs + off);
     }
   }
 }
@@ -516,21 +614,33 @@ static cudaError_t launch_dq_simt(const void* q, const void* k, const void* v,
 }
 
 template <int D>
-static cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
-                                  const void* dout, const float* lse,
-                                  const float* delta, void* dk, void* dv,
-                                  MaskArgs m, int BHk, int G, float scale,
-                                  cudaStream_t st) {
-  const size_t smem = dkv_mma_smem<D>();
-  cudaError_t err = flash_set_smem(flash_dkv_mma<D>, smem);
+static cudaError_t launch_dkv_wgmma(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* lse, const float* delta,
+                                    void* dk, void* dv, MaskArgs m, int BH,
+                                    int BHk, float scale, cudaStream_t st) {
+  using T = DkvTiles<D>;
+  const long long rows = (long long)BH * m.Sq;
+  CUtensorMap tq, tdo, tk, tv, tlse, tdelta, tqseg;
+  memset(&tqseg, 0, sizeof(tqseg));
+  cudaError_t err = make_map_tiles(&tq, q, D, m.Sq, BH, T::BQ);
+  if (err == cudaSuccess) err = make_map_tiles(&tdo, dout, D, m.Sq, BH, T::BQ);
+  if (err == cudaSuccess) err = make_map_tiles(&tk, k, D, m.Sk, BHk, T::BK);
+  if (err == cudaSuccess) err = make_map_tiles(&tv, v, D, m.Sk, BHk, T::BK);
+  if (err == cudaSuccess)
+    err = make_map_flat(&tlse, lse, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rows, T::BQ);
+  if (err == cudaSuccess)
+    err = make_map_flat(&tdelta, delta, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rows,
+                        T::BQ);
+  if (err == cudaSuccess && m.qseg != nullptr)
+    err = make_map_flat(&tqseg, m.qseg, CU_TENSOR_MAP_DATA_TYPE_INT32, rows,
+                        T::BQ);
+  if (err == cudaSuccess) err = flash_set_smem(flash_dkv_wgmma<D>, T::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((m.Sk + DKV_BK - 1) / DKV_BK, BHk);
-  flash_dkv_mma<D><<<grid, MMA_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), m, G,
-      scale);
+  dim3 grid(BHk, (m.Sk + T::BK - 1) / T::BK);
+  flash_dkv_wgmma<D><<<grid, WS_THREADS, T::SMEM, st>>>(
+      tq, tdo, tk, tv, tlse, tdelta, tqseg, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), m, BH / BHk, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -553,13 +663,15 @@ static cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
 
 // Dynamic shared memory one block of each kernel for (dtype, D) requests.
 extern "C" long long chainermn_flash_dq_smem(int bf16, int D) {
-  if (!flash_use_mma(bf16, D)) return (long long)dq_simt_smem(D);
+  if (flash_route(FLASH_DQ, bf16, D) != FLASH_MMA)
+    return (long long)dq_simt_smem(D);
   return (long long)(D == 64 ? dq_mma_smem<64>() : dq_mma_smem<128>());
 }
 
 extern "C" long long chainermn_flash_dkv_smem(int bf16, int D) {
-  if (!flash_use_mma(bf16, D)) return (long long)dkv_simt_smem(D);
-  return (long long)(D == 64 ? dkv_mma_smem<64>() : dkv_mma_smem<128>());
+  if (flash_route(FLASH_DKV, bf16, D) != FLASH_WGMMA)
+    return (long long)dkv_simt_smem(D);
+  return (long long)(D == 64 ? DkvTiles<64>::SMEM : DkvTiles<128>::SMEM);
 }
 
 extern "C" int chainermn_flash_dq(const void* q, const void* k, const void* v,
@@ -575,7 +687,7 @@ extern "C" int chainermn_flash_dq(const void* q, const void* k, const void* v,
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
   cudaError_t err;
-  if (flash_use_mma(bf16, D))
+  if (flash_route(FLASH_DQ, bf16, D) == FLASH_MMA)
     err = D == 64
               ? launch_dq_mma<64>(q, k, v, dout, L, Dl, dq, m, BH, G, scale, st)
               : launch_dq_mma<128>(q, k, v, dout, L, Dl, dq, m, BH, G, scale,
@@ -603,11 +715,11 @@ extern "C" int chainermn_flash_dkv(const void* q, const void* k, const void* v,
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
   cudaError_t err;
-  if (flash_use_mma(bf16, D))
-    err = D == 64 ? launch_dkv_mma<64>(q, k, v, dout, L, Dl, dk, dv, m, BHk, G,
-                                       scale, st)
-                  : launch_dkv_mma<128>(q, k, v, dout, L, Dl, dk, dv, m, BHk,
-                                        G, scale, st);
+  if (flash_route(FLASH_DKV, bf16, D) == FLASH_WGMMA)
+    err = D == 64 ? launch_dkv_wgmma<64>(q, k, v, dout, L, Dl, dk, dv, m, BH,
+                                         BHk, scale, st)
+                  : launch_dkv_wgmma<128>(q, k, v, dout, L, Dl, dk, dv, m, BH,
+                                          BHk, scale, st);
   else if (bf16)
     err = launch_dkv_simt<__nv_bfloat16>(q, k, v, dout, L, Dl, dk, dv, m, BHk,
                                          G, D, scale, st);

@@ -17,10 +17,16 @@
 
 #define FLASH_NEG_INF (-1e30f)
 
-// The one rule that picks a kernel for a call: bf16 at D = 64 or 128 runs
-// the tensor-core (mma.sync) kernels, every other call the SIMT kernels.
-static inline bool flash_use_mma(int bf16, int D) {
-  return bf16 && (D == 64 || D == 128);
+// The one rule that picks a kernel for a call.  bf16 at D = 64 or 128 runs
+// on the tensor cores: the forward and dK/dV on the Hopper (wgmma, TMA,
+// warp-specialised) kernels, dQ on its mma.sync kernel.  Every other call
+// runs the SIMT kernels.
+enum FlashKernel { FLASH_FWD = 0, FLASH_DQ = 1, FLASH_DKV = 2 };
+enum FlashRoute { FLASH_SIMT = 0, FLASH_MMA = 1, FLASH_WGMMA = 2 };
+
+static inline int flash_route(int kernel, int bf16, int D) {
+  if (!bf16 || (D != 64 && D != 128)) return FLASH_SIMT;
+  return kernel == FLASH_DQ ? FLASH_MMA : FLASH_WGMMA;
 }
 
 struct MaskArgs {
@@ -101,7 +107,7 @@ __device__ __forceinline__ float round_to(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core helpers (bf16 kernels): mma.sync m16n8k16, fp32 accumulate.
+// mma.sync helpers (the bf16 dQ kernel): m16n8k16, fp32 accumulate.
 //
 // With g = lane / 4 and t = lane % 4, the fragments hold
 //   A (16x16 row-major): a[0] = A[g][2t..2t+1],   a[1] = A[g+8][2t..2t+1],

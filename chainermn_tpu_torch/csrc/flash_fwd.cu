@@ -12,19 +12,31 @@
 // What bounds it on this card: at the training shapes (S = 4096, D = 128,
 // causal) the work is ~2.7e11 FLOP per call against ~0.2 GB of traffic, far
 // above the H100's ~295 FLOP/byte balance point, so the bound is the
-// tensor-core rate.  Design: the bf16 kernel is FlashAttention-2 on
-// mma.sync m16n8k16 (fp32 accumulate).  One block of 4 warps owns 64 query
-// rows (16 per warp) and walks the live key tiles (the TPU grid's
-// sequential axis becomes this loop); S, P and the O accumulator stay in
-// registers, and P feeds the PV product straight from the S accumulator
-// layout.  Key/value tiles pass through padded shared memory.  The tiles
-// are loaded synchronously: TMA, wgmma and warp specialisation are the
-// next step.  Blocks start with the longest causal rows first.
+// tensor-core rate, which only wgmma reaches.  Design (bf16, D in {64,
+// 128}): one block owns 128 query rows of one head and is three
+// warpgroups.  The producer warpgroup gives its registers away
+// (setmaxnreg) and one of its threads drives TMA: the Q tile once, then
+// the live K/V tiles (BK = 128 keys at D = 128, 192 at D = 64) through a
+// three-stage shared-memory ring with one full and one empty mbarrier per
+// stage.  Each of the two consumer warpgroups owns 64 query rows: S = Q K^T
+// is a wgmma with both operands in shared memory (K is K-major), the
+// online softmax runs in exp2 on the accumulator registers, and P, cast to
+// bf16 in place, is the register A operand of O += P V (V read MN-major,
+// the transpose flag).  The consumers ping-pong (FlashAttention-3): a
+// warpgroup's turn at the tensor cores issues S for this tile and P V for
+// the previous one, so its softmax runs under its own P V and the other
+// warpgroup's turn.  Tiles are 128-byte swizzled, so neither TMA nor wgmma
+// meets bank conflicts.  Only tiles that the causal diagonal, the window
+// band, the ragged edge or segment ids cut pay a per-score mask test;
+// segment ids of a key tile ride the ring with it.  O leaves through
+// shared memory (the warpgroup's own Q rows) in 16-byte stores.  Blocks
+// start with the longest causal rows first.
 //
-// The fp32 path, and bf16 at head sizes without a tensor-core instance,
-// use a plain SIMT kernel with the same semantics (fp32 FMA).
+// The fp32 path, and bf16 at other head sizes, use a plain SIMT kernel with
+// the same semantics (fp32 FMA).
 
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 // ---------------------------------------------------------------------------
 // SIMT kernel: any D <= 256, float or bf16.
@@ -127,147 +139,255 @@ __global__ void __launch_bounds__(SIMT_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core kernel: bf16, D in {64, 128}.
+// Hopper kernel: bf16, D in {64, 128}.
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BQ = 64;
-constexpr int MMA_BK = 64;
-constexpr int MMA_THREADS = 128;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
-static size_t fwd_mma_smem() {
-  return sizeof(__nv_bfloat16) * (MMA_BQ + 2 * MMA_BK) * (D + 8);
-}
+struct FwdTiles {
+  static constexpr int BQ = 128;           // query rows; 64 per consumer
+  static constexpr int BK = D == 64 ? 192 : 128;
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;   // one K or one V tile
+  static constexpr int SEG_BYTES = BK * 4;
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_SEG = OFF_V + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_SEG + STAGES * SEG_BYTES;
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                  MaskArgs m, int G, float scale) {
-  constexpr int BQ = MMA_BQ, BK = MMA_BK, LD = D + 8;
-  constexpr int ND = D / 8, NK = BK / 8, KD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tkseg,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    MaskArgs m, int G, float scale_log2) {
+  using T = FwdTiles<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, STAGES = T::STAGES, NB = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sm);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + T::OFF_BAR);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+  auto Ks = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(sm + T::OFF_K + s * T::KV_BYTES);
+  };
+  auto Vs = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(sm + T::OFF_V + s * T::KV_BYTES);
+  };
+  auto Segs = [&](int s) {
+    return reinterpret_cast<int*>(sm + T::OFF_SEG + s * T::SEG_BYTES);
+  };
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int kvrow = bh / G;
-  const int q0 = qt * BQ;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const __nv_bfloat16* kb = k + (size_t)kvrow * m.Sk * D;
-  const __nv_bfloat16* vb = v + (size_t)kvrow * m.Sk * D;
-
-  load_tile_bf16<D>(Qs, LD, q + (size_t)bh * m.Sq * D, q0, BQ, m.Sq, tid,
-                    MMA_THREADS);
-  __syncthreads();
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) load_a_frag(qa[kk], Qs, LD, r0, kk * 16, g, t);
-
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-  float mi[2] = {FLASH_NEG_INF, FLASH_NEG_INF};
-  float li[2] = {0.f, 0.f};
-  const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest rows first
+  const bool seg = m.qseg != nullptr;
   int kt0, kt1;
   flash_k_range(m, q0, BQ, BK, &kt0, &kt1);
-  for (int kt = kt0; kt < kt1; ++kt) {
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);                     // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, T::Q_BYTES);
+      for (int b = 0; b < NB; ++b)
+        tma_load_3d(Qs + b * BQ * 64, &tq, qbar, b * 64, q0, bh);
+      for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * T::KV_BYTES + (seg ? T::SEG_BYTES : 0));
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(Ks(s) + b * BK * 64, &tk, &full[s], b * 64, kt * BK,
+                      kvrow);
+          tma_load_3d(Vs(s) + b * BK * 64, &tv, &full[s], b * 64, kt * BK,
+                      kvrow);
+        }
+        if (seg) tma_load_1d(Segs(s), &tkseg, &full[s], kvrow * m.Sk + kt * BK);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup c owns query rows qc0 .. qc0 + 63.
+  regs_alloc<240>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qc0 = q0 + 64 * c;
+  const int qlast = min(qc0 + 63, m.Sq - 1);
+  const int qrow[2] = {qc0 + 16 * warp + g, qc0 + 16 * warp + g + 8};
+  int qseg[2] = {0, 0};
+  if (seg)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qrow[h] < m.Sq) qseg[h] = m.qseg[(size_t)bh * m.Sq + qrow[h]];
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float mi[2] = {FLASH_NEG_INF, FLASH_NEG_INF};
+  float li[2] = {0.f, 0.f};
+  const __nv_bfloat16* Qc = Qs + c * 64 * 64;   // this warpgroup's rows
+  mbar_wait(qbar, 0);
+
+  // Ping-pong: the two warpgroups take turns at the tensor cores (named
+  // barriers 3 and 4).  A turn issues S = Q K^T for this tile, then
+  // O += P V for the previous one, as two groups: the softmax of this tile
+  // starts when S is in and runs under the P V product and under the other
+  // warpgroup's turn.  The issue path has no branch (a branch around wgmma
+  // makes the compiler serialise them): the first turn multiplies a zero P
+  // by this stage's V.  A stage is released once its V has been used.
+  const int my_turn = 3 + c, their_turn = 4 - c;
+  if (c == 1) named_bar_arrive(3, 256);       // warpgroup 0 goes first
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = 0u;
+  int prev_s = 0;                             // stage of the V that pa meets
+  for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+    const int s = i % STAGES;
     const int k0 = kt * BK;
-    __syncthreads();
-    load_tile_bf16<D>(Ks, LD, kb, k0, BK, m.Sk, tid, MMA_THREADS);
-    load_tile_bf16<D>(Vs, LD, vb, k0, BK, m.Sk, tid, MMA_THREADS);
-    __syncthreads();
+    // Tile classes: interior (every pair live: no mask test) or cut (test
+    // every score; a tile with no live pair gives P = 0).
+    const bool interior = !seg && k0 + BK <= m.Sk &&
+                          (!m.causal || k0 + BK - 1 <= qc0) &&
+                          (m.window < 0 || qlast - k0 < m.window);
+    float sc[BK / 2];
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    named_bar_sync(my_turn, 256);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int b = kk / 4, ko = (kk % 4) * 16;
+      wgmma_ss(sc, gmma_desc_kmajor(Qc + b * BQ * 64 + ko),
+               gmma_desc_kmajor(Ks(s) + b * BK * 64 + ko), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(acc, pa[kk],
+               gmma_desc_mnmajor(Vs(prev_s) + kk * 16 * 64, BK * 128));
+    wgmma_commit();
+    named_bar_arrive(their_turn, 256);
+    wgmma_wait<1>();                          // S is in; P V may still run
+    keep(sc);
 
-    float s[NK][4];
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-      for (int nt = 0; nt < NK; ++nt) {
-        uint32_t b[2];
-        load_bt_frag(b, Ks, LD, nt * 8, kk * 16, g, t);
-        mma_16816(s[nt], qa[kk], b);
-      }
-
-    uint32_t live = 0;
     float mx[2] = {FLASH_NEG_INF, FLASH_NEG_INF};
+    if (interior) {
 #pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int kp = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool L = flash_live(m, bh, kvrow, qrow[h], kp);
-        const float x = L ? s[nt][e] * scale : FLASH_NEG_INF;
-        s[nt][e] = x;
-        if (L) live |= 1u << (nt * 4 + e);
-        mx[h] = fmaxf(mx[h], x);
+      for (int e = 0; e < BK / 2; ++e) {
+        sc[e] *= scale_log2;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
       }
-    float alpha[2], rs[2] = {0.f, 0.f};
+    } else {
+      const int* ks = Segs(s);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int h = (e >> 1) & 1;
+        const int kc = (e >> 2) * 8 + 2 * t + (e & 1);
+        const int kp = k0 + kc, qp = qrow[h];
+        const bool live = qp < m.Sq && kp < m.Sk && (!m.causal || kp <= qp) &&
+                          (m.window < 0 || qp - kp < m.window) &&
+                          (!seg || qseg[h] == ks[kc]);
+        sc[e] = live ? sc[e] * scale_log2 : FLASH_NEG_INF;
+        mx[h] = fmaxf(mx[h], sc[e]);
+      }
+    }
+    // Online softmax in base 2.  A row with no live score so far keeps
+    // m = -1e30 and subtracts 0, so its masked scores give exp2(-1e30) = 0.
+    float alpha[2], base[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float mn = fmaxf(mi[h], quad_max(mx[h]));
-      alpha[h] = expf(mi[h] - mn);
+      alpha[h] = ex2(mi[h] - mn);
       mi[h] = mn;
+      base[h] = mn == FLASH_NEG_INF ? 0.f : mn;
     }
 #pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const float p =
-            ((live >> (nt * 4 + e)) & 1u) ? expf(s[nt][e] - mi[h]) : 0.f;
-        s[nt][e] = p;
-        rs[h] += p;
-      }
+    for (int e = 0; e < BK / 2; ++e) {
+      const int h = (e >> 1) & 1;
+      sc[e] = ex2(sc[e] - base[h]);
+      rs[h] += sc[e];
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) li[h] = li[h] * alpha[h] + quad_sum(rs[h]);
+    wgmma_wait();                             // the previous P V is in
+    keep(acc);
+    keep(pa);
+    if (i > 0) mbar_arrive(&empty[prev_s]);
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
+    for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e >> 1];
-
+    for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+    prev_s = s;
+  }
+  if (c == 0) named_bar_sync(my_turn, 256);   // warpgroup 1's last turn
+  if (kt1 > kt0) {
+    wgmma_fence();
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b[2];
-        load_b_frag(b, Vs, LD, kk * 16, nd * 8, g, t);
-        mma_16816(acc[nd], a, b);
-      }
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(acc, pa[kk],
+               gmma_desc_mnmajor(Vs(prev_s) + kk * 16 * 64, BK * 128));
+    wgmma_commit();
+    wgmma_wait();
+    keep(acc);
+    keep(pa);
+    mbar_arrive(&empty[prev_s]);
   }
 
+  // Epilogue: O through this warpgroup's own Q rows, then 16-byte stores.
+  float den[2], inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int qp = qrow[h];
-    if (qp < m.Sq) {
-      const float den = fmaxf(li[h], 1e-30f);
-      __nv_bfloat16* orow = o + ((size_t)bh * m.Sq + qp) * D;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * t) =
-            pack_bf16(acc[nd][2 * h] / den, acc[nd][2 * h + 1] / den);
-      if (t == 0) lse[(size_t)bh * m.Sq + qp] = mi[h] + logf(den);
-    }
+    den[h] = fmaxf(li[h], 1e-30f);
+    inv[h] = 1.f / den[h];
   }
+  unsigned char* Oc = reinterpret_cast<unsigned char*>(Qs) + c * 64 * 128;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h, col = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(Oc + (col / 64) * BQ * 128 +
+                                   swz_offset(r, col % 64)) =
+          pack_bf16(acc[4 * j + 2 * h] * inv[h], acc[4 * j + 2 * h + 1] * inv[h]);
+    }
+  named_bar_sync(1 + c, 128);
+  for (int idx = tw; idx < 64 * (D / 8); idx += 128) {
+    const int r = idx / (D / 8), ch = idx % (D / 8);
+    if (qc0 + r < m.Sq)
+      *reinterpret_cast<uint4*>(o + ((size_t)bh * m.Sq + qc0 + r) * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(Oc + (ch / 8) * BQ * 128 +
+                                          swz_offset(r, (ch % 8) * 8));
+  }
+  if (t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qrow[h] < m.Sq)
+        lse[(size_t)bh * m.Sq + qrow[h]] =
+            mi[h] == FLASH_NEG_INF ? FLASH_NEG_INF
+                                   : mi[h] * LN2 + logf(den[h]);
 }
 
 // ---------------------------------------------------------------------------
@@ -275,17 +395,25 @@ __global__ void __launch_bounds__(MMA_THREADS)
 // ---------------------------------------------------------------------------
 
 template <int D>
-static cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
-                                  void* o, float* lse, MaskArgs m, int BH,
-                                  int G, float scale, cudaStream_t st) {
-  const size_t smem = fwd_mma_smem<D>();
-  cudaError_t err = flash_set_smem(flash_fwd_mma<D>, smem);
+static cudaError_t launch_fwd_wgmma(const void* q, const void* k,
+                                    const void* v, void* o, float* lse,
+                                    MaskArgs m, int BH, int BHk, float scale,
+                                    cudaStream_t st) {
+  using T = FwdTiles<D>;
+  CUtensorMap tq, tk, tv, tkseg;
+  memset(&tkseg, 0, sizeof(tkseg));
+  cudaError_t err = make_map_tiles(&tq, q, D, m.Sq, BH, T::BQ);
+  if (err == cudaSuccess) err = make_map_tiles(&tk, k, D, m.Sk, BHk, T::BK);
+  if (err == cudaSuccess) err = make_map_tiles(&tv, v, D, m.Sk, BHk, T::BK);
+  if (err == cudaSuccess && m.kseg != nullptr)
+    err = make_map_flat(&tkseg, m.kseg, CU_TENSOR_MAP_DATA_TYPE_INT32,
+                        (long long)BHk * m.Sk, T::BK);
+  if (err == cudaSuccess) err = flash_set_smem(flash_fwd_wgmma<D>, T::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((m.Sq + MMA_BQ - 1) / MMA_BQ, BH);
-  flash_fwd_mma<D><<<grid, MMA_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      m, G, scale);
+  dim3 grid(BH, (m.Sq + T::BQ - 1) / T::BQ);
+  flash_fwd_wgmma<D><<<grid, WS_THREADS, T::SMEM, st>>>(
+      tq, tk, tv, tkseg, static_cast<__nv_bfloat16*>(o), lse, m, BH / BHk,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -305,12 +433,15 @@ static cudaError_t launch_fwd_simt(const void* q, const void* k, const void* v,
 
 // Dynamic shared memory one block of the kernel for (dtype, D) requests.
 extern "C" long long chainermn_flash_fwd_smem(int bf16, int D) {
-  if (!flash_use_mma(bf16, D)) return (long long)fwd_simt_smem(D);
-  return (long long)(D == 64 ? fwd_mma_smem<64>() : fwd_mma_smem<128>());
+  if (flash_route(FLASH_FWD, bf16, D) != FLASH_WGMMA)
+    return (long long)fwd_simt_smem(D);
+  return (long long)(D == 64 ? FwdTiles<64>::SMEM : FwdTiles<128>::SMEM);
 }
 
-extern "C" int chainermn_flash_uses_mma(int bf16, int D) {
-  return flash_use_mma(bf16, D);
+// The route (FLASH_SIMT, FLASH_MMA, FLASH_WGMMA) of `kernel` (FLASH_FWD,
+// FLASH_DQ, FLASH_DKV) at this dtype and head size.
+extern "C" int chainermn_flash_route(int kernel, int bf16, int D) {
+  return flash_route(kernel, bf16, D);
 }
 
 extern "C" int chainermn_flash_fwd(const void* q, const void* k, const void* v,
@@ -324,9 +455,10 @@ extern "C" int chainermn_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   cudaError_t err;
-  if (flash_use_mma(bf16, D))
-    err = D == 64 ? launch_fwd_mma<64>(q, k, v, o, l, m, BH, G, scale, st)
-                  : launch_fwd_mma<128>(q, k, v, o, l, m, BH, G, scale, st);
+  if (flash_route(FLASH_FWD, bf16, D) == FLASH_WGMMA)
+    err = D == 64 ? launch_fwd_wgmma<64>(q, k, v, o, l, m, BH, BHk, scale, st)
+                  : launch_fwd_wgmma<128>(q, k, v, o, l, m, BH, BHk, scale,
+                                          st);
   else if (bf16)
     err = launch_fwd_simt<__nv_bfloat16>(q, k, v, o, l, m, BH, G, D, scale, st);
   else

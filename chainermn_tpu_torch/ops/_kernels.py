@@ -1,7 +1,8 @@
 """The hand-written flash-attention kernels: build, bind, launch, count.
 
-Three CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) replace
-the three Pallas kernels of ``chainermn_tpu/ops/flash_attention.py``:
+Three CUDA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, with
+the Hopper building blocks of ``csrc/sm90.cuh``) replace the three
+Pallas kernels of ``chainermn_tpu/ops/flash_attention.py``:
 
 ==============  =====================================================
 ``flash_fwd``   ``_attn_kernel`` — o and the fp32 row log-sum-exp
@@ -11,8 +12,10 @@ the three Pallas kernels of ``chainermn_tpu/ops/flash_attention.py``:
 
 Each source compiles at first use with ``nvcc`` (sm_90a) into a shared
 library with a plain C interface under ``build/kernels/`` of the
-checkout, named by the source's hash, and is bound with ``ctypes``.
-Both sources build in parallel.
+checkout, named by the sources' hash, and is bound with ``ctypes``.
+Both sources build in parallel.  Which kernel a call runs (``wgmma``,
+``mma`` or ``simt``) follows one rule in ``csrc/flash_common.cuh``;
+:func:`route` reports it.
 
 Every wrapper here takes its kernel's plain PyTorch twin only when the
 tensors lie on the CPU; for CUDA tensors it launches the kernel or
@@ -94,7 +97,7 @@ def build() -> dict:
                 _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v", "-I", str(_CSRC),
-                "-o", str(tmp), str(_CSRC / f"{name}.cu"),
+                "-o", str(tmp), str(_CSRC / f"{name}.cu"), "-ldl",
             ]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -129,8 +132,8 @@ def _bind(name: str, lib) -> None:
         smem.argtypes = [I, I]
         smem.restype = ctypes.c_longlong
     if name == "flash_fwd":
-        lib.chainermn_flash_uses_mma.argtypes = [I, I]
-        lib.chainermn_flash_uses_mma.restype = I
+        lib.chainermn_flash_route.argtypes = [I, I, I]
+        lib.chainermn_flash_route.restype = I
 
 
 def _lib(name: str):
@@ -180,12 +183,15 @@ def _check(q, k, v, extra, seg, window):
 
 def _cuda_ready(q, tensors):
     """Raise unless the kernels take this call: D <= 256, grid rows within
-    CUDA's limit, every operand a contiguous tensor with a 16-byte aligned
-    base (the kernels take raw pointers)."""
+    CUDA's limit, row positions within int32 (the TMA coordinates), every
+    operand a contiguous tensor with a 16-byte aligned base (the kernels
+    take raw pointers)."""
     if q.shape[2] > 256:
         raise ValueError(f"flash kernels take D <= 256, got {q.shape[2]}")
     if q.shape[0] > 65535:
         raise ValueError(f"flash kernels take at most 65535 rows, got {q.shape[0]}")
+    if q.shape[0] * max(q.shape[1], tensors[1].shape[1]) >= 2 ** 31:
+        raise ValueError("flash kernels take fewer than 2**31 rows x positions")
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("flash kernels take contiguous tensors")
@@ -211,13 +217,19 @@ def smem_bytes(name: str, dtype: torch.dtype, D: int) -> int:
     return int(fn(int(dtype == torch.bfloat16), int(D)))
 
 
-def tensor_core_path(dtype: torch.dtype, D: int) -> bool:
-    """Whether a CUDA call at this dtype and head size runs the tensor-core
-    (``mma.sync``) kernels rather than the SIMT ones (the rule lives in
-    ``csrc/flash_common.cuh``); builds the kernels on first use."""
+_KERNEL_IDS = {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 2}
+_ROUTES = ("simt", "mma", "wgmma")
+
+
+def route(name: str, dtype: torch.dtype, D: int) -> str:
+    """The kernel a CUDA call of ``name`` (``flash_fwd``, ``flash_dq``,
+    ``flash_dkv``) runs at this dtype and head size: ``"wgmma"`` (the
+    Hopper TMA-fed, warp-specialised kernels), ``"mma"`` (``mma.sync``) or
+    ``"simt"``.  The rule lives in ``csrc/flash_common.cuh``; builds the
+    kernels on first use."""
     lib = _lib("flash_fwd")
-    return bool(lib.chainermn_flash_uses_mma(int(dtype == torch.bfloat16),
-                                             int(D)))
+    return _ROUTES[lib.chainermn_flash_route(
+        _KERNEL_IDS[name], int(dtype == torch.bfloat16), int(D))]
 
 
 def _ptr(t):

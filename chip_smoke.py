@@ -7,12 +7,13 @@ of which fails the run when wrong:
 1. the card: ``nvidia-smi`` name and power limit, the torch device name;
 2. build the flash-attention kernels from ``chainermn_tpu_torch/csrc``
    (``nvcc``, sm_90a) and print the compiler's register, shared-memory and
-   spill report;
+   spill report, with any note that it serialised ``wgmma``;
 3. hold each kernel (forward, dQ, dK/dV) against its plain PyTorch twin
    on the same inputs, in bf16 and fp32, causal and not, GQA, sliding
-   window, packed segments with padding rows, D in {64, 128}, and once at
-   the full-width shape; a tiny fp32 LM through the kernels against the
-   same LM on dense attention;
+   window, packed segments with padding rows, ragged S, D in {64, 128},
+   and once at the full-width shape, each case tagged with the route each
+   kernel took (``wgmma``, ``mma`` or ``simt``); a tiny fp32 LM through
+   the kernels against the same LM on dense attention;
 4. the main path: the data-parallel LM train step of the port at full
    width (vocab 32768, d_model 2048, 16 heads, d_ff 8192, 8 layers,
    S 4096, batch 4, bf16 compute, fp32 AdamW master weights) through
@@ -20,9 +21,10 @@ of which fails the run when wrong:
    launch counted, then one more step under ``torch.profiler`` for the
    device time by kernel and the device's idle share;
 5. per-kernel times at the main path's shapes (CUDA events) beside the
-   plain twins, the least time the card could take, and one PyTorch call
-   computing the same function (``scaled_dot_product_attention``), timed
-   here as a yardstick only.
+   plain twins, the least time the card could take (and the share of it
+   reached), the TFLOP/s, and one PyTorch call computing the same
+   function (``scaled_dot_product_attention``), timed here as a yardstick
+   only.
 
 The last two lines of standard output are the card's ``name, power.limit``
 line before a JSON line of per-kernel numbers, then
@@ -48,6 +50,10 @@ N_WARMUP, N_TIMED = 2, 5     # train steps before and inside the timing
 
 FULL = dict(vocab=32768, d_model=2048, n_heads=16, d_ff=8192, n_layers=8,
             seq=4096, batch=4, ce_chunk=1024)
+
+# The design behind each route: the Hopper kernels (TMA-fed mbarrier ring,
+# warp specialisation, wgmma) and the Ampere-style mma.sync one.
+DESIGNS = {"wgmma": "wgmma_tma", "mma": "mma_sync", "simt": "simt"}
 
 KERNELS = {
     "flash_fwd": ("chainermn_tpu_torch/csrc/flash_fwd.cu",
@@ -175,6 +181,7 @@ def phase_compare(torch, K, log):
                 (dtype, 4, 2, 256, D, True, None, True),       # segments
                 (dtype, 4, 2, 256, D, False, None, True),
                 (dtype, 4, 4, 200, D, True, 64, True),         # ragged S
+                (dtype, 16, 4, 320, D, True, None, False),     # ragged, G = 4
             ]
     cases.append((torch.bfloat16, 4, 2, 256, 96, True, 33, True))  # SIMT bf16
     # Full width, the main path's shapes.
@@ -192,9 +199,10 @@ def phase_compare(torch, K, log):
         errs, report, bad = compare_case(torch, K, case, causal, window,
                                          D ** -0.5, TOL[str(dtype)[6:]])
         del case
+        routes = " ".join(f"{name[6:]}:{K.route(name, dtype, D)}"
+                          for name in KERNELS)
         tag = (f"{str(dtype)[6:]} BH={BH} BHk={BHk} S={S} D={D} "
-               f"causal={causal} window={window} seg={seg} "
-               f"path={'mma' if K.tensor_core_path(dtype, D) else 'simt'}")
+               f"causal={causal} window={window} seg={seg} route {routes}")
         log(f"compare {tag}: {report}" + (f"  FAIL {bad}" if bad else ""))
         if bad:
             failed.append(f"{tag}: {bad}")
@@ -422,18 +430,22 @@ def phase_time(torch, K, log):
         flops, nbytes = work[name]
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        ms = time_ms(torch, kern[name], 10)
         res[name] = {
-            "ms": time_ms(torch, kern[name], 10),
+            "ms": ms,
             "plain_ms": time_ms(torch, plain[name], 2),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library[name],
-            "flops": flops,
+            "design": DESIGNS[K.route(name, torch.bfloat16, D)],
+            "tflops": flops / ms / 1e9,
+            "bound_share": max(t_ops, t_bytes) / ms,
         }
         r = res[name]
-        log(f"time {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, "
-            f"bound {r['bound_ms']:.3f} by {r['bound_by']}, library "
-            f"{r['library_ms']:.3f}), {flops / r['ms'] / 1e9:.1f} TFLOP/s")
+        log(f"time {name} [{r['design']}]: {r['ms']:.3f} ms (plain "
+            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.3f} by "
+            f"{r['bound_by']}, library {r['library_ms']:.3f}), "
+            f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of bound")
     return res
 
 
@@ -474,7 +486,8 @@ def main(argv=None) -> int:
     for name, rec in info.items():
         log(f"build {name}.cu: {rec['seconds']:.1f}s")
         for line in rec["log"].splitlines():
-            if re.search(r"Compiling entry|Used \d+ registers|spill", line):
+            if re.search(r"Compiling entry|Used \d+ registers|spill|"
+                         r"[Ww]arning|Performance Loss", line):
                 log("  " + line.strip())
     for name in KERNELS:
         log(f"dynamic shared memory per block, {name}: " + ", ".join(
@@ -497,6 +510,8 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "design": t["design"], "tflops": t["tflops"],
+            "bound_share": t["bound_share"],
         })
     summary = {k: train[k] for k in ("step_ms", "tokens_per_s",
                                      "peak_mem_gib", "steps")}
