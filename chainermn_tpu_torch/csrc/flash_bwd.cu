@@ -15,27 +15,38 @@
 // ~4.1e11 FLOP and dK/dV ~5.5e11 FLOP per call against ~0.3 GB of traffic,
 // so both are bound by the tensor-core rate.  The TPU kernels carried their
 // accumulators across sequential grid steps; here a loop inside the block
-// replaces that axis.
+// replaces that axis.  Both Hopper kernels (bf16, D in {64, 128}) are three
+// warpgroups: a producer warpgroup that gives its registers away
+// (setmaxnreg) and drives TMA from one thread, and two consumer warpgroups
+// that run wgmma on 128-byte-swizzled tiles.  Each block writes only its
+// own rows: no atomics, bit-identical results run to run.
 //
-// dK/dV (bf16, D in {64, 128}) is a Hopper kernel: one block owns 128 keys
-// of one kv row, as three warpgroups.  The producer warpgroup gives its
-// registers away (setmaxnreg); one of its threads loads the block's K and V
-// tiles once by TMA and then streams 64-row (Q, dO) tiles with their lse
-// and delta rows (and query segment ids) through a two-stage mbarrier ring,
-// over every query head of the GQA group and every live query tile, so the
-// group's reduction happens in the block: no atomics, no second pass, and
-// bit-identical results run to run.  Each consumer warpgroup owns 64 keys
-// and keeps its dK and dV accumulators (64 x D fp32) in registers for the
-// whole block.  Per query tile it computes S^T = K Q^T and dP^T = V dO^T
-// with wgmma from shared memory (keys on the accumulator rows), P^T and
-// dS^T in registers (exp2 of pre-scaled scores, the mask tested only on
-// tiles the diagonal, the window band, the ragged edge or segment ids cut),
-// and dV += P^T dO, dK += dS^T Q as wgmma with P^T and dS^T, cast to bf16,
-// as the register A operand and dO, Q read MN-major (the transpose flag).
-// dK and dV leave through shared memory in 16-byte stores.
+// dQ: one block owns 128 query rows of one (batch, head) row.  The producer
+// loads the block's Q and dO tiles with their lse and delta rows (and query
+// segment ids) once, then streams 64-key (K, V) tiles of the kv row, with
+// their key segment ids, through a three-stage mbarrier ring over the live
+// key tiles.  Each consumer owns 64 query rows and keeps its dQ accumulator
+// (64 x D fp32) in registers for the whole block.  Per key tile it computes
+// S = Q K^T and dP = dO V^T with wgmma from shared memory, P and dS in
+// registers (exp2 of pre-scaled scores, the mask tested only on tiles the
+// diagonal, the window band, the ragged edge or segment ids cut), and
+// dQ += dS K as wgmma with dS, cast to bf16, as the register A operand and
+// K read MN-major.  dQ leaves through the block's Q tile in 16-byte stores.
+// Blocks start with the longest causal rows first.
 //
-// dQ (bf16, D in {64, 128}) is mma.sync m16n8k16 with fp32 accumulators in
-// registers, 4 warps of 16 query rows each, tiles loaded synchronously.
+// dK/dV: one block owns 128 keys of one kv row.  The producer loads the
+// block's K and V tiles once and then streams 64-row (Q, dO) tiles with
+// their lse and delta rows (and query segment ids) through a two-stage
+// mbarrier ring, over every query head of the GQA group and every live
+// query tile, so the group's reduction happens in the block, with no second
+// pass.  Each consumer owns 64 keys and keeps its dK and dV accumulators
+// (64 x D fp32) in registers for the whole block.  Per query tile it
+// computes S^T = K Q^T and dP^T = V dO^T with wgmma from shared memory
+// (keys on the accumulator rows), P^T and dS^T in registers, masked as in
+// dQ, and dV += P^T dO, dK += dS^T Q as wgmma with P^T and dS^T, cast to
+// bf16, as the register A operand and dO, Q read MN-major (the transpose
+// flag).  dK and dV leave through shared memory in 16-byte stores.
+//
 // The fp32 path, and bf16 at other head sizes, use plain SIMT kernels with
 // the same semantics (fp32 FMA).
 
@@ -218,131 +229,222 @@ __global__ void __launch_bounds__(SIMT_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// dQ tensor-core kernel: bf16, D in {64, 128}, mma.sync.
+// dQ Hopper kernel: bf16, D in {64, 128}, wgmma + TMA ring.
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;
-constexpr int DQ_BQ = 64, DQ_BK = 64;     // dQ: 16 query rows per warp
+template <int D>
+struct DqTiles {
+  static constexpr int BQ = 128;           // query rows; 64 per consumer
+  static constexpr int BK = 64;            // keys per ring stage
+  static constexpr int STAGES = 3;
+  static constexpr int QT_BYTES = BQ * D * 2;   // Q or dO tile
+  static constexpr int KV_BYTES = BK * D * 2;   // K or V tile
+  static constexpr int ROW_BYTES = BQ * 4;      // lse, delta or segment ids
+  static constexpr int SEG_BYTES = BK * 4;      // key segment ids
+  // Loaded once: Q, dO, then lse, delta, query segment ids.
+  static constexpr int OFF_Q = 0, OFF_DO = QT_BYTES, OFF_LSE = 2 * QT_BYTES;
+  static constexpr int OFF_DELTA = OFF_LSE + ROW_BYTES;
+  static constexpr int OFF_QSEG = OFF_DELTA + ROW_BYTES;
+  // One ring stage: K, V, key segment ids.
+  static constexpr int ST_K = 0, ST_V = KV_BYTES, ST_SEG = 2 * KV_BYTES;
+  static constexpr int STAGE_BYTES = (ST_SEG + SEG_BYTES + 1023) / 1024 * 1024;
+  static constexpr int OFF_STAGE = (OFF_QSEG + ROW_BYTES + 1023) / 1024 * 1024;
+  static constexpr int OFF_BAR = OFF_STAGE + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
 
 template <int D>
-static size_t dq_mma_smem() {
-  return sizeof(__nv_bfloat16) * (2 * DQ_BQ + 2 * DQ_BK) * (D + 8);
-}
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tlse,
+                   const __grid_constant__ CUtensorMap tdelta,
+                   const __grid_constant__ CUtensorMap tqseg,
+                   const __grid_constant__ CUtensorMap tkseg,
+                   __nv_bfloat16* __restrict__ dq, MaskArgs m, int G,
+                   float scale, float scale_log2) {
+  using T = DqTiles<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, STAGES = T::STAGES, NB = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sm + T::OFF_Q);
+  __nv_bfloat16* dOs = reinterpret_cast<__nv_bfloat16*>(sm + T::OFF_DO);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + T::OFF_BAR);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+  auto stage = [&](int s) { return sm + T::OFF_STAGE + s * T::STAGE_BYTES; };
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_dq_mma(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, MaskArgs m, int G,
-                 float scale) {
-  constexpr int BQ = DQ_BQ, BK = DQ_BK, LD = D + 8;
-  constexpr int ND = D / 8, NK = BK / 8, KD = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + BQ * LD;
-  __nv_bfloat16* Ks = dOs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int kvrow = bh / G;
-  const int q0 = qt * BQ;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
-  const __nv_bfloat16* kb = k + (size_t)kvrow * m.Sk * D;
-  const __nv_bfloat16* vb = v + (size_t)kvrow * m.Sk * D;
-
-  load_tile_bf16<D>(Qs, LD, q + (size_t)bh * m.Sq * D, q0, BQ, m.Sq, tid,
-                    MMA_THREADS);
-  load_tile_bf16<D>(dOs, LD, dout + (size_t)bh * m.Sq * D, q0, BQ, m.Sq, tid,
-                    MMA_THREADS);
-  const int qrow[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  float Lr[2], Dr[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool in = qrow[h] < m.Sq;
-    Lr[h] = in ? lse[(size_t)bh * m.Sq + qrow[h]] : 0.f;
-    Dr[h] = in ? delta[(size_t)bh * m.Sq + qrow[h]] : 0.f;
-  }
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest rows first
+  const bool seg = m.qseg != nullptr;
   int kt0, kt1;
   flash_k_range(m, q0, BQ, BK, &kt0, &kt1);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile_bf16<D>(Ks, LD, kb, k0, BK, m.Sk, tid, MMA_THREADS);
-    load_tile_bf16<D>(Vs, LD, vb, k0, BK, m.Sk, tid, MMA_THREADS);
-    __syncthreads();
 
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = 0.f;
-        dp[nt][e] = 0.f;
-      }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a_frag(aq, Qs, LD, r0, kk * 16, g, t);
-      load_a_frag(ado, dOs, LD, r0, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NK; ++nt) {
-        uint32_t b[2];
-        load_bt_frag(b, Ks, LD, nt * 8, kk * 16, g, t);
-        mma_16816(s[nt], aq, b);
-        load_bt_frag(b, Vs, LD, nt * 8, kk * 16, g, t);
-        mma_16816(dp[nt], ado, b);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);                     // every consumer thread
     }
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int kp = k0 + nt * 8 + 2 * t + (e & 1);
-        float ds = 0.f;
-        if (flash_live(m, bh, kvrow, qrow[h], kp)) {
-          const float p = expf(s[nt][e] * scale - Lr[h]);
-          ds = p * (dp[nt][e] - Dr[h]) * scale;
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    regs_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar,
+                     2 * T::QT_BYTES + (2 + (seg ? 1 : 0)) * T::ROW_BYTES);
+      for (int b = 0; b < NB; ++b) {
+        tma_load_3d(Qs + b * BQ * 64, &tq, qbar, b * 64, q0, bh);
+        tma_load_3d(dOs + b * BQ * 64, &tdo, qbar, b * 64, q0, bh);
+      }
+      tma_load_1d(sm + T::OFF_LSE, &tlse, qbar, bh * m.Sq + q0);
+      tma_load_1d(sm + T::OFF_DELTA, &tdelta, qbar, bh * m.Sq + q0);
+      if (seg) tma_load_1d(sm + T::OFF_QSEG, &tqseg, qbar, bh * m.Sq + q0);
+      for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+        const int s = i % STAGES;
+        unsigned char* st = stage(s);
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * T::KV_BYTES + (seg ? T::SEG_BYTES : 0));
+        for (int b = 0; b < NB; ++b) {
+          tma_load_3d(st + T::ST_K + b * BK * 128, &tk, &full[s], b * 64,
+                      kt * BK, kvrow);
+          tma_load_3d(st + T::ST_V + b * BK * 128, &tv, &full[s], b * 64,
+                      kt * BK, kvrow);
         }
-        s[nt][e] = ds;
-      }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        uint32_t b[2];
-        load_b_frag(b, Ks, LD, kk * 16, nd * 8, g, t);
-        mma_16816(acc[nd], a, b);
+        if (seg)
+          tma_load_1d(st + T::ST_SEG, &tkseg, &full[s],
+                      kvrow * m.Sk + kt * BK);
       }
     }
+    return;
   }
 
+  // Consumer warpgroup c owns query rows qc0 .. qc0 + 63.
+  regs_alloc<240>();
+  const int c = threadIdx.x / 128 - 1;
+  const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qc0 = q0 + 64 * c;
+  const int qlast = min(qc0 + 63, m.Sq - 1);
+  const int rloc[2] = {64 * c + 16 * warp + g, 64 * c + 16 * warp + g + 8};
+  const __nv_bfloat16* Qc = Qs + c * 64 * 64;   // this warpgroup's rows
+  const __nv_bfloat16* dOc = dOs + c * 64 * 64;
+  mbar_wait(qbar, 0);
+  // This thread's two query rows: lse (pre-scaled to base 2), delta and
+  // segment id.
+  const float* Ls = reinterpret_cast<const float*>(sm + T::OFF_LSE);
+  const float* Ds = reinterpret_cast<const float*>(sm + T::OFF_DELTA);
+  const int* Sg = reinterpret_cast<const int*>(sm + T::OFF_QSEG);
+  float lse2[2], dlt[2];
+  int qseg[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int qp = qrow[h];
-    if (qp < m.Sq) {
-      __nv_bfloat16* row = dq + ((size_t)bh * m.Sq + qp) * D;
+    lse2[h] = Ls[rloc[h]] * LOG2E;
+    dlt[h] = Ds[rloc[h]];
+    qseg[h] = Sg[rloc[h]];
+  }
+
+  float acc[D / 2];
 #pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        *reinterpret_cast<uint32_t*>(row + nd * 8 + 2 * t) =
-            pack_bf16(acc[nd][2 * h], acc[nd][2 * h + 1]);
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  // Every consumer walks every key tile of the block, so the issue path has
+  // no branch (a branch around wgmma makes the compiler serialise them): a
+  // tile with no live pair for this warpgroup goes through the masked path
+  // and gives dS = 0.  A stage is released once the dQ product that reads
+  // its K has been waited on.
+  for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+    const int s = i % STAGES;
+    const int k0 = kt * BK;
+    const unsigned char* st = stage(s);
+    const __nv_bfloat16* Kt =
+        reinterpret_cast<const __nv_bfloat16*>(st + T::ST_K);
+    const __nv_bfloat16* Vt =
+        reinterpret_cast<const __nv_bfloat16*>(st + T::ST_V);
+    const int* ks = reinterpret_cast<const int*>(st + T::ST_SEG);
+    // Tile classes: interior (every pair live: no mask test) or cut.
+    const bool interior = !seg && qc0 + 64 <= m.Sq && k0 + BK <= m.Sk &&
+                          (!m.causal || k0 + BK - 1 <= qc0) &&
+                          (m.window < 0 || qlast - k0 < m.window);
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    // S = Q K^T and dP = dO V^T: queries on the accumulator rows.
+    float sc[BK / 2], dp[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int b = kk / 4, ko = (kk % 4) * 16;
+      wgmma_ss(sc, gmma_desc_kmajor(Qc + b * BQ * 64 + ko),
+               gmma_desc_kmajor(Kt + b * BK * 64 + ko), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int b = kk / 4, ko = (kk % 4) * 16;
+      wgmma_ss(dp, gmma_desc_kmajor(dOc + b * BQ * 64 + ko),
+               gmma_desc_kmajor(Vt + b * BK * 64 + ko), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    keep(sc);
+    keep(dp);
+
+    // P = exp2(S scale log2e - lse log2e), dS = P (dP - delta) scale; a
+    // masked pair gives P = dS = 0.
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int h = (e >> 1) & 1;
+      const int kc = (e >> 2) * 8 + 2 * t + (e & 1);
+      bool live = true;
+      if (!interior) {
+        const int qp = qc0 + 16 * warp + g + 8 * h, kp = k0 + kc;
+        live = qp < m.Sq && kp < m.Sk && (!m.causal || kp <= qp) &&
+               (m.window < 0 || qp - kp < m.window) &&
+               (!seg || qseg[h] == ks[kc]);
+      }
+      const float p = live ? ex2(sc[e] * scale_log2 - lse2[h]) : 0.f;
+      dp[e] = p * (dp[e] - dlt[h]) * scale;
+    }
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+    // dQ += dS K: the key axis is the reduction, so K is read MN-major.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(acc, da[kk], gmma_desc_mnmajor(Kt + kk * 16 * 64, BK * 128));
+    wgmma_commit();
+    wgmma_wait();
+    keep(acc);
+    keep(da);
+    mbar_arrive(&empty[s]);
+  }
+
+  // Epilogue: dQ through this warpgroup's own Q rows, then 16-byte stores.
+  unsigned char* dQs = reinterpret_cast<unsigned char*>(Qs) + c * 64 * 128;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h, col = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(dQs + (col / 64) * BQ * 128 +
+                                   swz_offset(r, col % 64)) =
+          pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  named_bar_sync(1 + c, 128);
+  for (int idx = tw; idx < 64 * (D / 8); idx += 128) {
+    const int r = idx / (D / 8), ch = idx % (D / 8);
+    if (qc0 + r < m.Sq) {
+      const size_t go = ((size_t)bh * m.Sq + qc0 + r) * D + ch * 8;
+      *reinterpret_cast<uint4*>(dq + go) = *reinterpret_cast<const uint4*>(
+          dQs + (ch / 8) * BQ * 128 + swz_offset(r, (ch % 8) * 8));
     }
   }
 }
@@ -580,19 +682,37 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 // ---------------------------------------------------------------------------
 
 template <int D>
-static cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
-                                 const void* dout, const float* lse,
-                                 const float* delta, void* dq, MaskArgs m,
-                                 int BH, int G, float scale, cudaStream_t st) {
-  const size_t smem = dq_mma_smem<D>();
-  cudaError_t err = flash_set_smem(flash_dq_mma<D>, smem);
+static cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                                   const void* dout, const float* lse,
+                                   const float* delta, void* dq, MaskArgs m,
+                                   int BH, int BHk, float scale,
+                                   cudaStream_t st) {
+  using T = DqTiles<D>;
+  const long long rows = (long long)BH * m.Sq;
+  CUtensorMap tq, tdo, tk, tv, tlse, tdelta, tqseg, tkseg;
+  memset(&tqseg, 0, sizeof(tqseg));
+  memset(&tkseg, 0, sizeof(tkseg));
+  cudaError_t err = make_map_tiles(&tq, q, D, m.Sq, BH, T::BQ);
+  if (err == cudaSuccess) err = make_map_tiles(&tdo, dout, D, m.Sq, BH, T::BQ);
+  if (err == cudaSuccess) err = make_map_tiles(&tk, k, D, m.Sk, BHk, T::BK);
+  if (err == cudaSuccess) err = make_map_tiles(&tv, v, D, m.Sk, BHk, T::BK);
+  if (err == cudaSuccess)
+    err = make_map_flat(&tlse, lse, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rows, T::BQ);
+  if (err == cudaSuccess)
+    err = make_map_flat(&tdelta, delta, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rows,
+                        T::BQ);
+  if (err == cudaSuccess && m.qseg != nullptr)
+    err = make_map_flat(&tqseg, m.qseg, CU_TENSOR_MAP_DATA_TYPE_INT32, rows,
+                        T::BQ);
+  if (err == cudaSuccess && m.kseg != nullptr)
+    err = make_map_flat(&tkseg, m.kseg, CU_TENSOR_MAP_DATA_TYPE_INT32,
+                        (long long)BHk * m.Sk, T::BK);
+  if (err == cudaSuccess) err = flash_set_smem(flash_dq_wgmma<D>, T::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((m.Sq + DQ_BQ - 1) / DQ_BQ, BH);
-  flash_dq_mma<D><<<grid, MMA_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      static_cast<__nv_bfloat16*>(dq), m, G, scale);
+  dim3 grid(BH, (m.Sq + T::BQ - 1) / T::BQ);
+  flash_dq_wgmma<D><<<grid, WS_THREADS, T::SMEM, st>>>(
+      tq, tdo, tk, tv, tlse, tdelta, tqseg, tkseg,
+      static_cast<__nv_bfloat16*>(dq), m, BH / BHk, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -663,9 +783,9 @@ static cudaError_t launch_dkv_simt(const void* q, const void* k, const void* v,
 
 // Dynamic shared memory one block of each kernel for (dtype, D) requests.
 extern "C" long long chainermn_flash_dq_smem(int bf16, int D) {
-  if (flash_route(FLASH_DQ, bf16, D) != FLASH_MMA)
+  if (flash_route(FLASH_DQ, bf16, D) != FLASH_WGMMA)
     return (long long)dq_simt_smem(D);
-  return (long long)(D == 64 ? dq_mma_smem<64>() : dq_mma_smem<128>());
+  return (long long)(D == 64 ? DqTiles<64>::SMEM : DqTiles<128>::SMEM);
 }
 
 extern "C" long long chainermn_flash_dkv_smem(int bf16, int D) {
@@ -687,11 +807,11 @@ extern "C" int chainermn_flash_dq(const void* q, const void* k, const void* v,
   const float* L = static_cast<const float*>(lse);
   const float* Dl = static_cast<const float*>(delta);
   cudaError_t err;
-  if (flash_route(FLASH_DQ, bf16, D) == FLASH_MMA)
-    err = D == 64
-              ? launch_dq_mma<64>(q, k, v, dout, L, Dl, dq, m, BH, G, scale, st)
-              : launch_dq_mma<128>(q, k, v, dout, L, Dl, dq, m, BH, G, scale,
-                                   st);
+  if (flash_route(FLASH_DQ, bf16, D) == FLASH_WGMMA)
+    err = D == 64 ? launch_dq_wgmma<64>(q, k, v, dout, L, Dl, dq, m, BH, BHk,
+                                        scale, st)
+                  : launch_dq_wgmma<128>(q, k, v, dout, L, Dl, dq, m, BH, BHk,
+                                         scale, st);
   else if (bf16)
     err = launch_dq_simt<__nv_bfloat16>(q, k, v, dout, L, Dl, dq, m, BH, G, D,
                                         scale, st);

@@ -18,15 +18,14 @@
 #define FLASH_NEG_INF (-1e30f)
 
 // The one rule that picks a kernel for a call.  bf16 at D = 64 or 128 runs
-// on the tensor cores: the forward and dK/dV on the Hopper (wgmma, TMA,
-// warp-specialised) kernels, dQ on its mma.sync kernel.  Every other call
-// runs the SIMT kernels.
+// the forward, dQ and dK/dV on the Hopper kernels (wgmma, TMA,
+// warp-specialised); every other call runs the SIMT kernels.
 enum FlashKernel { FLASH_FWD = 0, FLASH_DQ = 1, FLASH_DKV = 2 };
-enum FlashRoute { FLASH_SIMT = 0, FLASH_MMA = 1, FLASH_WGMMA = 2 };
+enum FlashRoute { FLASH_SIMT = 0, FLASH_WGMMA = 1 };
 
-static inline int flash_route(int kernel, int bf16, int D) {
-  if (!bf16 || (D != 64 && D != 128)) return FLASH_SIMT;
-  return kernel == FLASH_DQ ? FLASH_MMA : FLASH_WGMMA;
+static inline int flash_route(int /* kernel: one rule for all three */,
+                              int bf16, int D) {
+  return bf16 && (D == 64 || D == 128) ? FLASH_WGMMA : FLASH_SIMT;
 }
 
 struct MaskArgs {
@@ -106,90 +105,11 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
 }
 
-// ---------------------------------------------------------------------------
-// mma.sync helpers (the bf16 dQ kernel): m16n8k16, fp32 accumulate.
-//
-// With g = lane / 4 and t = lane % 4, the fragments hold
-//   A (16x16 row-major): a[0] = A[g][2t..2t+1],   a[1] = A[g+8][2t..2t+1],
-//                        a[2] = A[g][2t+8..+9],   a[3] = A[g+8][2t+8..+9]
-//   B (16x8, k-major):   b[0] = B[2t..2t+1][g],   b[1] = B[2t+8..2t+9][g]
-//   C (16x8 fp32):       c[0..1] = C[g][2t..2t+1], c[2..3] = C[g+8][2t..2t+1]
-// so two adjacent C tiles of one 16-row strip are exactly the A fragment of
-// the next product (the FlashAttention-2 register reuse of P and dS).
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
+// Two floats as a bf16 pair in one register (round to nearest even): the
+// register A operand of a wgmma, and the 4-byte store of the epilogues.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo,
-                                                  __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two consecutive bf16 of shared memory as one register.
-__device__ __forceinline__ uint32_t lds_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of rows [r0, r0+16), columns [c0, c0+16) of a row-major tile.
-__device__ __forceinline__ void load_a_frag(uint32_t a[4],
-                                            const __nv_bfloat16* tile, int ld,
-                                            int r0, int c0, int g, int t) {
-  a[0] = lds_pair(tile + (r0 + g) * ld + c0 + 2 * t);
-  a[1] = lds_pair(tile + (r0 + g + 8) * ld + c0 + 2 * t);
-  a[2] = lds_pair(tile + (r0 + g) * ld + c0 + 2 * t + 8);
-  a[3] = lds_pair(tile + (r0 + g + 8) * ld + c0 + 2 * t + 8);
-}
-
-// B fragment of B = X^T where X is a row-major tile: B[k][n] = X[n0+n][k0+k].
-// The pair runs along X's row, so each register is one 32-bit load.
-__device__ __forceinline__ void load_bt_frag(uint32_t b[2],
-                                             const __nv_bfloat16* tile, int ld,
-                                             int n0, int k0, int g, int t) {
-  b[0] = lds_pair(tile + (n0 + g) * ld + k0 + 2 * t);
-  b[1] = lds_pair(tile + (n0 + g) * ld + k0 + 2 * t + 8);
-}
-
-// B fragment of B = X itself: B[k][n] = X[k0+k][n0+n].  The pair runs down
-// a column of X, so each register takes two 16-bit loads.
-__device__ __forceinline__ void load_b_frag(uint32_t b[2],
-                                            const __nv_bfloat16* tile, int ld,
-                                            int k0, int n0, int g, int t) {
-  const __nv_bfloat16* p = tile + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = pack_bf16_raw(p[0], p[ld]);
-  b[1] = pack_bf16_raw(p[8 * ld], p[9 * ld]);
-}
-
-// Copy rows [row0, row0 + R) of a (rows, D) bf16 matrix into a shared tile
-// with leading dimension ld, 16 bytes per thread and step; rows at or past
-// n_rows are zero.  Needs D % 8 == 0 and 16-byte aligned bases.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* tile, int ld,
-                                               const __nv_bfloat16* src,
-                                               int row0, int R, int n_rows,
-                                               int tid, int n_threads) {
-  constexpr int CH = D / 8;
-  for (int i = tid; i < R * CH; i += n_threads) {
-    int r = i / CH, c = i % CH;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(tile + r * ld + c * 8) = v;
-  }
 }
 
 // Scalar tile copy for the SIMT kernels: any D, converted to fp32.

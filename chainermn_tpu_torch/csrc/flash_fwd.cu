@@ -438,7 +438,7 @@ extern "C" long long chainermn_flash_fwd_smem(int bf16, int D) {
   return (long long)(D == 64 ? FwdTiles<64>::SMEM : FwdTiles<128>::SMEM);
 }
 
-// The route (FLASH_SIMT, FLASH_MMA, FLASH_WGMMA) of `kernel` (FLASH_FWD,
+// The route (FLASH_SIMT, FLASH_WGMMA) of `kernel` (FLASH_FWD,
 // FLASH_DQ, FLASH_DKV) at this dtype and head size.
 extern "C" int chainermn_flash_route(int kernel, int bf16, int D) {
   return flash_route(kernel, bf16, D);

@@ -13,9 +13,9 @@ Pallas kernels of ``chainermn_tpu/ops/flash_attention.py``:
 Each source compiles at first use with ``nvcc`` (sm_90a) into a shared
 library with a plain C interface under ``build/kernels/`` of the
 checkout, named by the sources' hash, and is bound with ``ctypes``.
-Both sources build in parallel.  Which kernel a call runs (``wgmma``,
-``mma`` or ``simt``) follows one rule in ``csrc/flash_common.cuh``;
-:func:`route` reports it.
+Both sources build in parallel.  Which kernel a call runs (``wgmma`` or
+``simt``) follows one rule in ``csrc/flash_common.cuh``; :func:`route`
+reports it.
 
 Every wrapper here takes its kernel's plain PyTorch twin only when the
 tensors lie on the CPU; for CUDA tensors it launches the kernel or
@@ -218,15 +218,14 @@ def smem_bytes(name: str, dtype: torch.dtype, D: int) -> int:
 
 
 _KERNEL_IDS = {"flash_fwd": 0, "flash_dq": 1, "flash_dkv": 2}
-_ROUTES = ("simt", "mma", "wgmma")
+_ROUTES = ("simt", "wgmma")
 
 
 def route(name: str, dtype: torch.dtype, D: int) -> str:
     """The kernel a CUDA call of ``name`` (``flash_fwd``, ``flash_dq``,
     ``flash_dkv``) runs at this dtype and head size: ``"wgmma"`` (the
-    Hopper TMA-fed, warp-specialised kernels), ``"mma"`` (``mma.sync``) or
-    ``"simt"``.  The rule lives in ``csrc/flash_common.cuh``; builds the
-    kernels on first use."""
+    Hopper TMA-fed, warp-specialised kernels) or ``"simt"``.  The rule
+    lives in ``csrc/flash_common.cuh``; builds the kernels on first use."""
     lib = _lib("flash_fwd")
     return _ROUTES[lib.chainermn_flash_route(
         _KERNEL_IDS[name], int(dtype == torch.bfloat16), int(D))]

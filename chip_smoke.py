@@ -12,14 +12,16 @@ of which fails the run when wrong:
    on the same inputs, in bf16 and fp32, causal and not, GQA, sliding
    window, packed segments with padding rows, ragged S, D in {64, 128},
    and once at the full-width shape, each case tagged with the route each
-   kernel took (``wgmma``, ``mma`` or ``simt``); a tiny fp32 LM through
-   the kernels against the same LM on dense attention;
+   kernel took (``wgmma`` or ``simt``); a tiny fp32 LM through the
+   kernels against the same LM on dense attention;
 4. the main path: the data-parallel LM train step of the port at full
    width (vocab 32768, d_model 2048, 16 heads, d_ff 8192, 8 layers,
    S 4096, batch 4, bf16 compute, fp32 AdamW master weights) through
    ``create_communicator("pure_nccl")`` over NCCL, with every kernel
    launch counted, then one more step under ``torch.profiler`` for the
-   device time by kernel and the device's idle share;
+   device time by kind of kernel (the ``other`` kind split by family and
+   by the operator that launched it, with its largest kernels) and the
+   device's idle share;
 5. per-kernel times at the main path's shapes (CUDA events) beside the
    plain twins, the least time the card could take (and the share of it
    reached), the TFLOP/s, and one PyTorch call computing the same
@@ -52,8 +54,8 @@ FULL = dict(vocab=32768, d_model=2048, n_heads=16, d_ff=8192, n_layers=8,
             seq=4096, batch=4, ce_chunk=1024)
 
 # The design behind each route: the Hopper kernels (TMA-fed mbarrier ring,
-# warp specialisation, wgmma) and the Ampere-style mma.sync one.
-DESIGNS = {"wgmma": "wgmma_tma", "mma": "mma_sync", "simt": "simt"}
+# warp specialisation, wgmma) and the plain SIMT ones.
+DESIGNS = {"wgmma": "wgmma_tma", "simt": "simt"}
 
 KERNELS = {
     "flash_fwd": ("chainermn_tpu_torch/csrc/flash_fwd.cu",
@@ -325,9 +327,50 @@ def phase_train(torch, K, log, n_warm, n_timed):
             "steps": steps}
 
 
-def profile_step(torch, run_step, log, top=14):
+def kernel_kind(name):
+    low = name.lower()
+    return ("flash" if "flash_" in low else
+            "nccl" if "nccl" in low else
+            "gemm" if any(w in low for w in ("gemm", "nvjet", "xmma",
+                                              "cutlass", "cublas")) else
+            "other")
+
+
+# The ``other`` kind split two ways.  By family, from the kernel's name
+# (the first match wins, else "elementwise"):
+OTHER_FAMILIES = (
+    ("multi-tensor (AdamW)", ("multi_tensor_apply",)),
+    ("copy (casts, layout copies)", ("copy",)),
+    ("layernorm", ("layer_norm", "layernorm", "gammabeta")),
+    ("gelu", ("gelu",)),
+    ("exp", ("exp_kernel",)),
+    ("reduce", ("reduce_kernel",)),
+    ("embedding, index", ("embedding", "index")),
+    ("fill", ("fill",)),
+)
+# By source, from the operators that launched it: the first of these that
+# any operator on the path from the launch up to the step's root matches
+# (else the launching operator's own name).
+OTHER_SOURCES = (
+    ("Optimizer.step", "AdamW step"),
+    ("FusedCE", "cross-entropy"),
+    ("_FlashBH", "flash adapter"),
+    ("layer_norm", "layernorm"),
+    ("gelu", "gelu"),
+    ("aten::_to_copy", "cast (.to)"),
+    ("aten::clone", "layout copy (.contiguous, reshape)"),
+)
+
+
+def _ms_table(d):
+    return ", ".join(f"{k} {v:.1f}" for k, v in
+                     sorted(d.items(), key=lambda kv: -kv[1]))
+
+
+def profile_step(torch, run_step, log, top=14, top_other=10):
     """One more train step under ``torch.profiler``: device time by kernel
-    and by kind, and the device's idle share of the step's wall time."""
+    and by kind, the ``other`` kind by family, by source and its largest
+    kernels, and the device's idle share of the step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -345,21 +388,38 @@ def profile_step(torch, run_step, log, top=14):
          and not getattr(ev, "is_user_annotation", False)),
         reverse=True)
     busy = sum(r[0] for r in rows)
-    kinds = {}
+    kinds, families = {}, {}
     for ms, _, key in rows:
-        low = key.lower()
-        kind = ("flash" if "flash_" in low else
-                "nccl" if "nccl" in low else
-                "gemm" if any(w in low for w in ("gemm", "nvjet", "xmma",
-                                                  "cutlass", "cublas")) else
-                "other")
+        kind = kernel_kind(key)
         kinds[kind] = kinds.get(kind, 0.0) + ms
+        if kind == "other":
+            low = key.lower()
+            fam = next((f for f, words in OTHER_FAMILIES
+                        if any(w in low for w in words)), "elementwise")
+            families[fam] = families.get(fam, 0.0) + ms
     log(f"profile: step wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle share {1 - busy / wall_ms:.3f}; by kind (ms): " + ", ".join(
-            f"{k} {v:.1f}" for k, v in sorted(kinds.items(),
-                                              key=lambda kv: -kv[1])))
+        f"idle share {1 - busy / wall_ms:.3f}; by kind (ms): "
+        + _ms_table(kinds))
     for ms, count, key in rows[:top]:
         log(f"profile:   {ms:9.2f} ms  x{count:<5d} {key[:90]}")
+    sources = {}
+    for ev in prof.events():
+        ks = [k for k in ev.kernels if kernel_kind(k.name) == "other"]
+        if not ks:
+            continue
+        path, e = [], ev
+        while e is not None:
+            path.append(e.name)
+            e = e.cpu_parent
+        src = next((label for pat, label in OTHER_SOURCES
+                    if any(pat in n for n in path)), ev.name)
+        sources[src] = sources.get(src, 0.0) + sum(
+            k.duration for k in ks) / 1e3
+    log("profile: other by family (ms): " + _ms_table(families))
+    log("profile: other by source (ms): " + _ms_table(sources))
+    for ms, count, key in [r for r in rows
+                           if kernel_kind(r[2]) == "other"][:top_other]:
+        log(f"profile:   other {ms:9.2f} ms  x{count:<5d} {key[:160]}")
 
 
 # ---------------------------------------------------------------------------

@@ -179,6 +179,78 @@ def test_flash_with_lse_and_dlse_match_reference(case):
                                    err_msg=f"d{name}")
 
 
+# bf16 limits of chip_smoke.py (kernel against twin on the card), here
+# twin against the reference's kernels: per element |a - b| <= atol +
+# rtol |b|, and per 64-row tile of a head ||a - b|| / ||b|| <= tile.
+BF16_ATOL, BF16_RTOL, BF16_TILE = 2 ** -6, 2e-2, 1e-2
+
+# (causal, H, Hk, window, segmented, D, block)
+BF16_GRID = [
+    (True, 4, 4, None, False, 64, 64),
+    (False, 4, 4, None, False, 64, 64),
+    (True, 4, 2, None, False, 64, 32),       # GQA
+    (True, 4, 2, 17, False, 64, 32),         # window
+    (True, 4, 2, None, True, 64, 32),        # segments, padding rows
+    (False, 4, 1, None, True, 128, 64),
+]
+
+
+@pytest.mark.parametrize("case", BF16_GRID,
+                         ids=["c{}-H{}-Hk{}-w{}-seg{}-D{}".format(*c[:6])
+                              for c in BF16_GRID])
+def test_bwd_twins_match_reference_kernels_in_bf16(case):
+    """The kernel boundary at the dtype the Hopper kernels run: bf16 q, k,
+    v, dO through the reference's dQ and dK/dV kernels (interpret mode,
+    from its own forward's o and LSE) and through the port's twins
+    ``flash_dq_plain`` / ``flash_dkv_plain`` (the card-side reference of
+    the CUDA kernels) on the same bf16 values, lse and delta."""
+    causal, H, Hk, window, segmented, D, block = case
+    B, S = 2, 128
+    scale = 1.0 / np.sqrt(D)
+    q, k, v, do = (x.transpose(0, 2, 1, 3).reshape(-1, S, D)
+                   for x in _inputs(B, S, H, Hk, D, seed=31 + D + H + Hk))
+    qs = ks = None
+    if segmented:
+        seg, kv_seg = _segments(B, S)
+        qs = np.repeat(seg, H, axis=0)[..., None]
+        ks = np.repeat(kv_seg, Hk, axis=0)[..., None]
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    jqs = None if qs is None else jnp.asarray(qs)
+    jks = None if ks is None else jnp.asarray(ks)
+    geo = dict(scale=scale, causal=causal, block_q=block, block_k=block,
+               interpret=True, q_seg=jqs, kv_seg=jks, window=window)
+    jo, jl = jfa._flash_bh_fwd(jq, jk, jv, **geo)
+    jdq, jdk, jdv = jfa._flash_bh_bwd(jq, jk, jv, jo, jl, jdo, **geo)
+
+    def bf16(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    tq, tk, tv, tdo, to = (bf16(x) for x in (jq, jk, jv, jdo, jo))
+    lse = torch.from_numpy(np.array(jl))
+    delta = (tdo.float() * to.float()).sum(-1, keepdim=True)
+    tqs = None if qs is None else torch.from_numpy(qs)
+    tks = None if ks is None else torch.from_numpy(ks)
+    args = (lse, delta, scale, causal, window, tqs, tks)
+    got = (_kernels.flash_dq_plain(tq, tk, tv, tdo, *args),
+           *_kernels.flash_dkv_plain(tq, tk, tv, tdo, *args))
+    for name, a, b in zip(("dq", "dk", "dv"), got, (jdq, jdk, jdv)):
+        assert a.dtype == torch.bfloat16, name
+        a = a.float().numpy()
+        b = np.asarray(b, np.float32)
+        d = np.abs(a - b)
+        worst = (d / (BF16_ATOL + BF16_RTOL * np.abs(b))).max()
+        assert worst <= 1.0, f"d{name}: worst element {worst:.3g} of limit"
+        for r0 in range(0, S, 64):
+            num = np.linalg.norm(d[:, r0:r0 + 64], axis=(1, 2))
+            den = np.linalg.norm(b[:, r0:r0 + 64], axis=(1, 2))
+            tile = (num / np.maximum(den, 1e-30)).max()
+            assert tile <= BF16_TILE, f"d{name} rows {r0}+: tile {tile:.3g}"
+    if segmented:
+        pad = qs[:, :, 0] == -1
+        assert np.all(got[0].float().numpy()[pad] == 0.0)
+        assert np.all(np.asarray(jdq, np.float32)[pad] == 0.0)
+
+
 def test_dense_fallback_outside_gate_matches_reference():
     """A block that does not divide S leaves the kernel gate: both
     packages take their dense counterpart."""

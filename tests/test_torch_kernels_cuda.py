@@ -12,8 +12,8 @@ a P near 1 can land one ulp, 2^-8, apart, times an operand up to about
 flips pass; an error spread over a tile does not).  fp32: atol 2e-5,
 rtol 1e-4, tile 1e-5 (summation order).  The fp32 row LSE within 1e-4.
 
-bf16 at D in {64, 128} runs the Hopper forward and dK/dV kernels (TMA
-ring, wgmma); the cases below reach their special tiles: S not a
+bf16 at D in {64, 128} runs the Hopper forward, dQ and dK/dV kernels
+(TMA ring, wgmma); the cases below reach their special tiles: S not a
 multiple of the 128-row tile, GQA, a window band, segment ids with
 padding rows (fully masked rows), causal and not.
 """
@@ -50,7 +50,7 @@ def _rand(shape, dtype, device, gen):
 
 def _check_against_twins(q, k, v, do, args, dtype):
     """Every kernel once against its twin on one case, with the limits
-    above; returns the forward's (o, lse)."""
+    above; returns the kernels' (o, lse, dq, dk, dv)."""
     before = dict(_kernels.LAUNCHES)
     o, lse = _kernels.flash_fwd(q, k, v, *args)
     o_p, lse_p = _kernels.flash_fwd_plain(q, k, v, *args)
@@ -70,7 +70,7 @@ def _check_against_twins(q, k, v, do, args, dtype):
             assert _worst_tile_l2(a, b) <= tile, name
     for name in before:
         assert _kernels.LAUNCHES[name] == before[name] + 1
-    return o, lse
+    return got
 
 
 def _segments(S, BH, BHk, device):
@@ -107,30 +107,32 @@ def test_kernels_match_plain_twins(cuda, dtype, D):
                                         (None, True)])
 def test_hopper_kernels_special_tiles(cuda, D, S, causal, window, seg):
     """GQA G = 4 at a ragged S against the twins, through the wgmma
-    routes; with segments, the padding rows come out o = 0, lse ~ -1e30."""
+    routes; with segments, the padding rows come out o = 0, lse ~ -1e30
+    and dq = 0."""
     bf16 = torch.bfloat16
     assert [_kernels.route(n, bf16, D) for n in
-            ("flash_fwd", "flash_dq", "flash_dkv")] == ["wgmma", "mma",
+            ("flash_fwd", "flash_dq", "flash_dkv")] == ["wgmma", "wgmma",
                                                         "wgmma"]
     g = torch.Generator().manual_seed(S + D)
     q, do = (_rand((16, S, D), bf16, cuda, g) for _ in range(2))
     k, v = (_rand((4, S, D), bf16, cuda, g) for _ in range(2))
     qs, ks = _segments(S, 16, 4, cuda) if seg else (None, None)
-    o, lse = _check_against_twins(q, k, v, do,
-                                  (D ** -0.5, causal, window, qs, ks),
-                                  "bfloat16")
+    o, lse, dq, _, _ = _check_against_twins(
+        q, k, v, do, (D ** -0.5, causal, window, qs, ks), "bfloat16")
     if seg:
         dead = qs[0, :, 0] == -1
         assert dead.any()
         assert o[:, dead].abs().max().item() == 0.0
         assert lse[:, dead].max().item() < -1e29
+        assert dq[:, dead].abs().max().item() == 0.0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, 128])
 def test_hopper_kernels_are_bitwise_deterministic(cuda, D):
-    """Two launches on the same inputs give identical bytes: the dK/dV
-    kernel reduces the GQA group inside the block, with no atomics."""
+    """Two launches on the same inputs give identical bytes: each block
+    writes only its own rows (the dK/dV kernel reduces the GQA group inside
+    the block), with no atomics."""
     bf16 = torch.bfloat16
     g = torch.Generator().manual_seed(D)
     q, do = (_rand((16, 320, D), bf16, cuda, g) for _ in range(2))
@@ -140,10 +142,12 @@ def test_hopper_kernels_are_bitwise_deterministic(cuda, D):
     o1, lse1 = _kernels.flash_fwd(q, k, v, *args)
     o2, lse2 = _kernels.flash_fwd(q, k, v, *args)
     delta = (do.float() * o1.float()).sum(-1, keepdim=True)
+    dq1 = _kernels.flash_dq(q, k, v, do, lse1, delta, *args)
+    dq2 = _kernels.flash_dq(q, k, v, do, lse1, delta, *args)
     dk1, dv1 = _kernels.flash_dkv(q, k, v, do, lse1, delta, *args)
     dk2, dv2 = _kernels.flash_dkv(q, k, v, do, lse1, delta, *args)
     torch.cuda.synchronize()
-    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+    for a, b in ((o1, o2), (lse1, lse2), (dq1, dq2), (dk1, dk2), (dv1, dv2)):
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
