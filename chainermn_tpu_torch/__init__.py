@@ -7,7 +7,9 @@ what the reference wrote in Pallas).  It imports torch, numpy and the
 standard library only.
 
 Facade mirroring ``chainermn_tpu/__init__.py`` for the names this port
-carries so far; everything loads lazily so ``import chainermn_tpu_torch``
+carries so far (the data-parallel surface: communicators, the multi-node
+optimizer, dataset scattering, evaluator, checkpointer, iterators and the
+except hook); everything loads lazily so ``import chainermn_tpu_torch``
 stays cheap.
 """
 
@@ -20,15 +22,24 @@ _LAZY = {
     "MultiNodeOptimizer": "chainermn_tpu_torch.optimizers",
     "scatter_dataset": "chainermn_tpu_torch.datasets",
     "create_empty_dataset": "chainermn_tpu_torch.datasets",
+    "create_multi_node_evaluator": "chainermn_tpu_torch.extensions",
+    "create_multi_node_checkpointer": "chainermn_tpu_torch.extensions",
+    "create_multi_node_iterator": "chainermn_tpu_torch.iterators",
+    "create_synchronized_iterator": "chainermn_tpu_torch.iterators",
+    "create_prefetch_iterator": "chainermn_tpu_torch.iterators",
 }
+_MODULES = ("global_except_hook", "extensions", "iterators", "datasets",
+            "models", "communicators")
 
 
 def __getattr__(name):
+    import importlib
+
+    if name in _MODULES:
+        return importlib.import_module(f"chainermn_tpu_torch.{name}")
     mod = _LAZY.get(name)
     if mod is None:
         raise AttributeError(
             f"module 'chainermn_tpu_torch' has no attribute {name!r}"
         )
-    import importlib
-
     return getattr(importlib.import_module(mod), name)

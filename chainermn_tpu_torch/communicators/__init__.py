@@ -9,19 +9,24 @@ Name map (reference → port):
 ``xla_ici``        one fused NCCL allreduce per bucket
 ``hierarchical``   intra-node reduce → inter-node allreduce → intra bcast
 ``non_cuda_aware``  alias of ``hierarchical``
-``two_dimensional``  not ported yet (ROADMAP A2)
-``single_host``    not ported yet (ROADMAP A2; reference ``single_node``)
+``two_dimensional``  intra reduce-scatter → inter allreduce → intra all-gather
+``single_host``    one allreduce within one node; raises over several nodes
+``single_node``    alias of ``single_host`` (the reference's name)
 =================  ==========================================================
 """
 
 from __future__ import annotations
 
 from .._device import resolve_device
+from . import overlap, packing, quant
 from .base import CommunicatorBase
 from .hierarchical import HierarchicalCommunicator
 from .mesh_utils import Topology, build_topology
 from .naive import NaiveCommunicator
+from .overlap import OverlapSchedule, build_overlap_schedule
 from .packing import DEFAULT_BUCKET_BYTES, GradPacker, pack_tree
+from .single_host import SingleHostCommunicator, SingleNodeCommunicator
+from .two_dimensional import TwoDimensionalCommunicator
 from .xla_ici import FlatCommunicator, XlaIciCommunicator
 
 _COMMUNICATORS: dict = {
@@ -31,10 +36,9 @@ _COMMUNICATORS: dict = {
     "pure_nccl": XlaIciCommunicator,
     "hierarchical": HierarchicalCommunicator,
     "non_cuda_aware": HierarchicalCommunicator,
-    # Known names whose port is a later slice.
-    "two_dimensional": None,
-    "single_host": None,
-    "single_node": None,
+    "two_dimensional": TwoDimensionalCommunicator,
+    "single_host": SingleHostCommunicator,
+    "single_node": SingleNodeCommunicator,
 }
 
 
@@ -45,6 +49,9 @@ def create_communicator(
     inter_size: int | None = None,
     intra_size: int | None = None,
     bucket_bytes: int | None = None,
+    overlap: bool | None = None,
+    overlap_granularity: int | None = None,
+    comm_dtype=None,
 ) -> CommunicatorBase:
     """Create a communicator by name (reference signature with ``mesh``
     replaced by ``device``).
@@ -54,22 +61,23 @@ def create_communicator(
     :func:`mesh_utils.ensure_process_group`), then builds the intra/inter
     sub-groups.  ``inter_size``/``intra_size`` force the node
     factorization; ``bucket_bytes`` caps the fused gradient buckets
-    (``None`` = 4 MiB, ``0`` = unbucketed)."""
+    (``None`` = 4 MiB, ``0`` = unbucketed); ``overlap`` pins the
+    backward-overlapped bucket launch (``None`` = ``CHAINERMN_TPU_OVERLAP``,
+    default ON) and ``overlap_granularity`` its buckets per stage;
+    ``comm_dtype`` (``"int8"``/``"fp8"``) puts the buckets on a scaled
+    narrow wire (``None`` = ``CHAINERMN_TPU_COMM_DTYPE``, default off)."""
     if communicator_name not in _COMMUNICATORS:
         raise ValueError(
             f"unknown communicator {communicator_name!r}; "
             f"choose from {sorted(_COMMUNICATORS)}"
         )
     cls = _COMMUNICATORS[communicator_name]
-    if cls is None:
-        raise NotImplementedError(
-            f"communicator {communicator_name!r} is not ported yet "
-            "(ROADMAP A2)"
-        )
     topo = build_topology(resolve_device(device), inter_size=inter_size,
                           intra_size=intra_size)
     return cls(topo, allreduce_grad_dtype=allreduce_grad_dtype,
-               bucket_bytes=bucket_bytes)
+               bucket_bytes=bucket_bytes, overlap=overlap,
+               overlap_granularity=overlap_granularity,
+               comm_dtype=comm_dtype)
 
 
 __all__ = [
@@ -78,10 +86,18 @@ __all__ = [
     "FlatCommunicator",
     "XlaIciCommunicator",
     "HierarchicalCommunicator",
+    "TwoDimensionalCommunicator",
+    "SingleHostCommunicator",
+    "SingleNodeCommunicator",
     "Topology",
     "build_topology",
     "create_communicator",
     "GradPacker",
+    "OverlapSchedule",
+    "build_overlap_schedule",
     "pack_tree",
     "DEFAULT_BUCKET_BYTES",
+    "overlap",
+    "packing",
+    "quant",
 ]

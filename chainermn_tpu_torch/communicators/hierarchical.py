@@ -19,15 +19,18 @@ from .base import CommunicatorBase
 class HierarchicalCommunicator(CommunicatorBase):
     name = "hierarchical"
 
-    def _allreduce_impl(self, tensors):
+    def _allreduce_sum_impl(self, buf):
         topo = self.topology
         leader = topo.inter_rank * topo.intra_size   # global rank of intra 0
+        if topo.intra_size > 1:
+            dist.reduce(buf, dst=leader, group=topo.intra_group)
+        if topo.intra_rank == 0 and topo.inter_size > 1:
+            dist.all_reduce(buf, group=topo.inter_group)
+        if topo.intra_size > 1:
+            dist.broadcast(buf, src=leader, group=topo.intra_group)
+        return buf
+
+    def _allreduce_impl(self, tensors):
         for g in tensors:
-            if topo.intra_size > 1:
-                dist.reduce(g, dst=leader, group=topo.intra_group)
-            if topo.intra_rank == 0 and topo.inter_size > 1:
-                dist.all_reduce(g, group=topo.inter_group)
-            if topo.intra_size > 1:
-                dist.broadcast(g, src=leader, group=topo.intra_group)
-            g.div_(self.size)
+            self._allreduce_sum_impl(g).div_(self.size)
         return tensors

@@ -33,6 +33,13 @@ class Topology:
     inter_size: int
     intra_group: object     # ranks of this node
     inter_group: object     # ranks with this intra_rank, one per node
+    # A ``split`` communicator's own process group and its members' global
+    # ranks in communicator-rank order; ``None`` for the whole world.
+    group: object = None
+    members: tuple | None = None
+    # Gloo group for the object plane (pickles never ride device tensors);
+    # ``None`` means the world's default group, when that is gloo.
+    obj_group: object = None
 
 
 def _free_localhost_port() -> int:
@@ -76,7 +83,8 @@ def build_topology(device: torch.device, inter_size: int | None = None,
     Every rank must call this with the same sizes: ``new_group`` is
     collective over the whole world.  A CUDA device without an index
     becomes ``cuda:LOCAL_RANK`` (0 without a launcher), ChainerMN's
-    one-GPU-per-intra-rank rule."""
+    one-GPU-per-intra-rank rule.  Over NCCL with more than one rank, a
+    gloo group of the world carries the object plane."""
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     ensure_process_group(device)
@@ -103,9 +111,13 @@ def build_topology(device: torch.device, inter_size: int | None = None,
         g = dist.new_group(ranks)
         if rank in ranks:
             inter_group = g
+    obj_group = None
+    if size > 1 and dist.get_backend() != "gloo":
+        obj_group = dist.new_group(backend="gloo")
     return Topology(
         device=device, rank=rank, size=size,
         intra_rank=rank % intra_size, intra_size=intra_size,
         inter_rank=rank // intra_size, inter_size=inter_size,
         intra_group=intra_group, inter_group=inter_group,
+        obj_group=obj_group,
     )

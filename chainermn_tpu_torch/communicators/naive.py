@@ -17,6 +17,15 @@ class NaiveCommunicator(CommunicatorBase):
     def _allreduce_impl(self, tensors):
         n = self.size
         for g in tensors:
-            dist.all_reduce(g)
+            dist.all_reduce(g, group=self.group)
             g.div_(n)
         return tensors
+
+    def _allreduce_async(self, buf):
+        work = dist.all_reduce(buf, group=self.group, async_op=True)
+
+        def done():
+            work.wait()
+            return buf.div_(self.size)
+
+        return done

@@ -165,13 +165,25 @@ class GradPacker:
                     f"tensor {i} is {tuple(t.shape)}/{t.dtype}, plan expects "
                     f"{self.shapes[i]}/{self.dtypes[i]}"
                 )
-        out = []
-        for b in self.buckets:
-            parts = [tensors[i].reshape(-1) for i in b.leaf_indices]
-            pad = b.padded_elems - b.elems
-            if pad:
-                parts.append(parts[0].new_zeros(pad))
-            out.append(torch.cat(parts))
+        return [self.pack_bucket(tensors, i) for i in range(self.n_buckets)]
+
+    def pack_bucket(self, tensors: Sequence[torch.Tensor], i: int):
+        """Bucket ``i`` of ``tensors`` as one 1-D buffer (zero padded);
+        only its member tensors are read."""
+        b = self.buckets[i]
+        parts = [tensors[j].reshape(-1) for j in b.leaf_indices]
+        pad = b.padded_elems - b.elems
+        if pad:
+            parts.append(parts[0].new_zeros(pad))
+        return torch.cat(parts)
+
+    def unpack_bucket(self, buf: torch.Tensor, i: int):
+        """``(leaf index, view)`` for each member of bucket ``i``."""
+        out, off = [], 0
+        for j in self.buckets[i].leaf_indices:
+            out.append((j, buf[off : off + self.sizes[j]].reshape(
+                self.shapes[j])))
+            off += self.sizes[j]
         return out
 
     def unpack(self, bufs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -182,14 +194,12 @@ class GradPacker:
                 f"got {len(bufs)} buffers for {self.n_buckets} buckets"
             )
         out: list = [None] * len(self.shapes)
-        for b, buf in zip(self.buckets, bufs):
+        for i, (b, buf) in enumerate(zip(self.buckets, bufs)):
             if buf.numel() != b.padded_elems:
                 raise ValueError(
                     f"buffer has {buf.numel()} elems, bucket expects "
                     f"{b.padded_elems}"
                 )
-            off = 0
-            for i in b.leaf_indices:
-                out[i] = buf[off : off + self.sizes[i]].reshape(self.shapes[i])
-                off += self.sizes[i]
+            for j, view in self.unpack_bucket(buf, i):
+                out[j] = view
         return out

@@ -31,9 +31,18 @@ class XlaIciCommunicator(CommunicatorBase):
             unpack = lambda b: [b.view(tensors[0].shape)]  # noqa: E731
         else:
             flat, unpack = pack_tree([t.to(common) for t in tensors])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.group)
         flat.div_(self.size)
         return [o.to(t.dtype) for o, t in zip(unpack(flat), tensors)]
+
+    def _allreduce_async(self, buf):
+        work = dist.all_reduce(buf, group=self.group, async_op=True)
+
+        def done():
+            work.wait()
+            return buf.div_(self.size)
+
+        return done
 
 
 class FlatCommunicator(XlaIciCommunicator):

@@ -18,7 +18,10 @@ flax path (shape)                                      port key (shape)
 ``final_norm/{scale,bias}``                            ``final_norm.{weight,bias}``
 =====================================================  ==========================================
 
-Every move is a reshape or a transpose, so the round trip is bit-exact.
+The reference's MNIST ``MLP`` maps onto :class:`models.mlp.MLP` by
+:func:`mlp_flax_to_state_dict` (``Dense_i/kernel`` transposed into
+``l{i+1}.weight``).  Every move is a reshape or a transpose, so the round
+trip is bit-exact.
 """
 
 from __future__ import annotations
@@ -106,3 +109,25 @@ def state_dict_to_flax(state_dict, n_heads: int) -> dict:
     tree["final_norm"] = {"scale": sd["final_norm.weight"],
                           "bias": sd["final_norm.bias"]}
     return tree
+
+
+def mlp_flax_to_state_dict(params) -> dict:
+    """The reference's flax ``MLP`` tree -> :class:`models.mlp.MLP`'s
+    ``state_dict``: ``Dense_i/kernel`` (in, out) transposed into
+    ``l{i+1}.weight`` (out, in), ``Dense_i/bias`` into ``l{i+1}.bias``."""
+    p = params.get("params", params)
+    sd = {}
+    for i in range(3):
+        dense = p[f"Dense_{i}"]
+        sd[f"l{i + 1}.weight"] = _t(np.asarray(dense["kernel"]).T)
+        sd[f"l{i + 1}.bias"] = _t(dense["bias"])
+    return sd
+
+
+def mlp_state_dict_to_flax(state_dict) -> dict:
+    """The inverse of :func:`mlp_flax_to_state_dict` (no ``"params"``
+    key)."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    return {f"Dense_{i}": {
+        "kernel": np.ascontiguousarray(sd[f"l{i + 1}.weight"].T),
+        "bias": sd[f"l{i + 1}.bias"]} for i in range(3)}

@@ -1,6 +1,13 @@
+from .multiprocess_iterator import MultiprocessBatchLoader  # noqa: F401
 from .scatter_dataset import (  # noqa: F401
     SubDataset,
     create_empty_dataset,
     scatter_dataset,
     scatter_index,
+)
+from .toy import (  # noqa: F401
+    ExplodingDataset,
+    SyntheticImageDataset,
+    SyntheticSeqDataset,
+    batch_iterator,
 )

@@ -1,0 +1,377 @@
+"""Multi-process batch loader — port of
+``chainermn_tpu/datasets/multiprocess_iterator.py`` (the role of Chainer's
+``MultiprocessIterator`` in ChainerMN's ImageNet example).
+
+Worker processes (``spawn`` start method) fetch dataset items and write
+the rows straight into shared-memory batch slots
+(``multiprocessing.shared_memory``), so a batch never crosses the process
+boundary through a pickle pipe.  The parent reorders completions, so the
+batches come out in the order :func:`datasets.toy.batch_iterator` gives
+for the same ``shuffle``/``seed``/``drop_last``; ``repeat`` reshuffles
+each epoch with ``seed + epoch``.  A worker's exception reaches the
+consumer as ``RuntimeError``; a dead worker is detected instead of
+waited on forever.
+
+Workers import numpy, this module and the pickled dataset only — never
+torch's CUDA runtime.  Feed the batches to the card with
+:func:`iterators.create_prefetch_iterator`.
+"""
+
+from __future__ import annotations
+
+import collections
+import itertools
+import multiprocessing as mp
+import os
+import queue as _queue
+import traceback
+from multiprocessing import shared_memory
+
+import numpy as np
+
+_SENTINEL = None
+
+
+def _probe(dataset):
+    """Per-component (shape, dtype) of one item; items must be fixed-shape."""
+    item = dataset[0]
+    if not isinstance(item, (tuple, list)):
+        item = (item,)
+    return [(np.asarray(c).shape, np.asarray(c).dtype) for c in item]
+
+
+def _worker_main(dataset, shm_names, batch_size, specs, task_q, done_q):
+    """Worker loop: fetch items, write rows straight into the shared slot.
+
+    Runs in a spawned process: only numpy and the user's dataset code run
+    here.
+    """
+    try:
+        shms = [
+            [shared_memory.SharedMemory(name=nm) for nm in slot_names]
+            for slot_names in shm_names
+        ]
+        views = [
+            [
+                np.ndarray((batch_size, *shape), dtype, buffer=shm.buf)
+                for shm, (shape, dtype) in zip(slot, specs)
+            ]
+            for slot in shms
+        ]
+        while True:
+            task = task_q.get()
+            if task is _SENTINEL:
+                return
+            gen, seq, slot, indices = task
+            try:
+                dst = views[slot]
+                for row, idx in enumerate(indices):
+                    item = dataset[int(idx)]
+                    if not isinstance(item, (tuple, list)):
+                        item = (item,)
+                    for c, comp in enumerate(item):
+                        dst[c][row] = comp
+                done_q.put((gen, seq, slot, len(indices), None))
+            except BaseException:  # noqa: BLE001 — relayed to parent
+                done_q.put((gen, seq, slot, 0, traceback.format_exc()))
+    except BaseException:  # noqa: BLE001 — setup failure: poison the parent
+        try:
+            done_q.put((-1, -1, -1, 0, traceback.format_exc()))
+        except Exception:
+            pass
+    finally:
+        try:
+            for slot in shms:
+                for shm in slot:
+                    shm.close()
+        except Exception:
+            pass
+
+
+class MultiprocessBatchLoader:
+    """Iterable of stacked-numpy batches assembled by worker processes.
+
+    Parameters mirror :func:`chainermn_tpu_torch.datasets.toy.batch_iterator`
+    (same order semantics for the same ``shuffle``/``seed``/``drop_last``),
+    plus:
+
+    ``n_workers``
+        Worker process count (default: ``min(2, cpu_count)``).
+    ``n_slots``
+        Shared-memory batch slots in flight (default ``2 * n_workers``);
+        bounds both parallelism and host memory
+        (``n_slots × batch_nbytes``).
+    ``repeat``
+        ``True`` → iterate epochs forever, reshuffling each epoch with
+        ``seed + epoch`` (the shape of a resident training loop).
+    ``copy``
+        ``True`` (default) → yield fresh arrays, valid forever.
+        ``False`` → yield zero-copy views of the shared slot; a yielded
+        batch stays valid until ``n_slots - n_workers - 1`` further batches
+        have been drawn (slots are recycled oldest-first).  The consumer
+        must FINISH reading (or explicitly copy) the batch within that
+        window: handing the view to an asynchronous consumer is unsound —
+        ``torch.from_numpy`` aliases the slot, and a non-blocking copy to
+        the card may still be reading it when the slot is recycled.  When
+        feeding a device, use ``copy=True``.
+
+    Use as a context manager or call :meth:`close`; abandoning a running
+    loader mid-epoch also shuts down cleanly via the iterator's ``finally``.
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        *,
+        n_workers: int = 0,
+        n_slots: int = 0,
+        shuffle: bool = True,
+        seed: int = 0,
+        drop_last: bool = True,
+        repeat: bool = False,
+        copy: bool = True,
+    ):
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self._dataset = dataset
+        self._n = len(dataset)
+        if self._n == 0:
+            raise ValueError("dataset is empty")
+        if self._n < batch_size and drop_last:
+            raise ValueError(
+                f"dataset ({self._n}) smaller than one batch ({batch_size})"
+            )
+        self._batch_size = batch_size
+        self._shuffle = shuffle
+        self._seed = seed
+        self._drop_last = drop_last
+        self._repeat = repeat
+        self._copy = copy
+        self._specs = _probe(dataset)
+        self._n_workers = n_workers if n_workers > 0 else min(
+            2, os.cpu_count() or 1
+        )
+        self._n_slots = n_slots if n_slots > 0 else 2 * self._n_workers
+        # copy=False hands out live slot views: with fewer than workers+2
+        # slots there is no slot that is neither in-flight nor still-valid.
+        if not copy:
+            self._n_slots = max(self._n_slots, self._n_workers + 2)
+        self._ctx = mp.get_context("spawn")
+        self._task_q = self._ctx.Queue()
+        self._done_q = self._ctx.Queue()
+        self._shms: list[list[shared_memory.SharedMemory]] = []
+        self._views: list[list[np.ndarray]] = []
+        for _ in range(self._n_slots):
+            slot_shms, slot_views = [], []
+            for shape, dtype in self._specs:
+                nbytes = int(np.prod((batch_size, *shape), dtype=np.int64)) * (
+                    np.dtype(dtype).itemsize
+                )
+                shm = shared_memory.SharedMemory(create=True, size=max(nbytes, 1))
+                slot_shms.append(shm)
+                slot_views.append(
+                    np.ndarray((batch_size, *shape), dtype, buffer=shm.buf)
+                )
+            self._shms.append(slot_shms)
+            self._views.append(slot_views)
+        shm_names = [[s.name for s in slot] for slot in self._shms]
+        self._procs = [
+            self._ctx.Process(
+                target=_worker_main,
+                args=(
+                    dataset, shm_names, batch_size, self._specs,
+                    self._task_q, self._done_q,
+                ),
+                daemon=True,
+            )
+            for _ in range(self._n_workers)
+        ]
+        for p in self._procs:
+            p.start()
+        self._closed = False
+        # Tasks issued but not yet completed (across generations) and the
+        # current iteration generation: an abandoned pass leaves in-flight
+        # tasks whose completions must be consumed — and whose slots must
+        # not be reassigned — before a new pass starts.
+        self._outstanding = 0
+        self._generation = 0
+
+    # -- epoch index plan -------------------------------------------------
+    def _epoch_batches(self, epoch: int):
+        order = (
+            np.random.RandomState(self._seed + epoch).permutation(self._n)
+            if self._shuffle
+            else np.arange(self._n)
+        )
+        stop = (
+            self._n - (self._n % self._batch_size)
+            if self._drop_last
+            else self._n
+        )
+        for start in range(0, stop, self._batch_size):
+            yield order[start : start + self._batch_size]
+
+    def _all_batches(self):
+        epochs = itertools.count() if self._repeat else range(1)
+        for e in epochs:
+            yield from self._epoch_batches(e)
+
+    def __bool__(self):
+        # Without this, bool(loader) falls back to __len__, which raises
+        # for repeat=True — truthiness must stay cheap and total.
+        return True
+
+    def __len__(self):
+        if self._repeat:
+            raise TypeError(
+                "MultiprocessBatchLoader with repeat=True is an infinite "
+                "iterator and has no length; use len(loader) only with "
+                "repeat=False (per-epoch batch count)"
+            )
+        per = (
+            self._n // self._batch_size
+            if self._drop_last
+            else -(-self._n // self._batch_size)
+        )
+        return per
+
+    # -- iteration --------------------------------------------------------
+    def _settle(self):
+        """Block until every issued task has completed, consuming (and
+        discarding) their completions — called before a new pass so stale
+        writes cannot race new slot assignments."""
+        while self._outstanding:
+            try:
+                _gen, _seq, _slot, _count, err = self._done_q.get(timeout=60.0)
+            except _queue.Empty:
+                raise RuntimeError(
+                    "MultiprocessBatchLoader: in-flight tasks never "
+                    "completed (worker process died?)"
+                ) from None
+            self._outstanding -= 1
+            if err is not None and _gen == -1:
+                raise RuntimeError(
+                    f"MultiprocessBatchLoader worker died:\n{err}"
+                )
+
+    def __iter__(self):
+        # Eager checks (this wrapper is not a generator, so they fire at
+        # iter() time, not first-next time), then the lazy batch generator.
+        if self._closed:
+            raise RuntimeError("loader is closed")
+        self._settle()
+        return self._iterate()
+
+    def _iterate(self):
+        self._generation += 1
+        gen = self._generation
+        tasks = self._all_batches()
+        free = list(range(self._n_slots))
+        # copy=False: keep recently-yielded slots out of the free pool so
+        # the consumer's views stay valid for a documented window.
+        keep = 0 if self._copy else max(1, self._n_slots - self._n_workers - 1)
+        held: collections.deque = collections.deque()
+        pending: dict = {}
+        next_task = 0
+        next_yield = 0
+
+        def schedule():
+            nonlocal next_task
+            while free:
+                idx = next(tasks, None)
+                if idx is None:
+                    return
+                self._task_q.put((gen, next_task, free.pop(), idx))
+                next_task += 1
+                self._outstanding += 1
+
+        # In-flight tasks of an abandoned pass are settled by the next
+        # pass or close().
+        schedule()
+        while next_yield < next_task:
+            while next_yield not in pending:
+                try:
+                    g, seq, slot, count, err = self._done_q.get(
+                        timeout=10.0
+                    )
+                except _queue.Empty:
+                    # ANY dead worker is fatal: its in-flight task (and
+                    # completion) may be lost forever, so waiting on
+                    # the survivors would hang the training loop.
+                    dead = [
+                        p for p in self._procs if not p.is_alive()
+                    ]
+                    if dead:
+                        raise RuntimeError(
+                            "MultiprocessBatchLoader: "
+                            f"{len(dead)}/{len(self._procs)} worker "
+                            "process(es) died (exitcodes "
+                            f"{[p.exitcode for p in dead]}; killed by "
+                            "the OOM killer? spawn requires an "
+                            "importable __main__ module and a "
+                            "picklable dataset)"
+                        ) from None
+                    continue
+                self._outstanding -= 1
+                if err is not None:
+                    raise RuntimeError(
+                        f"MultiprocessBatchLoader worker failed:\n{err}"
+                    )
+                if g != gen:
+                    continue  # stale completion from an abandoned pass
+                pending[seq] = (slot, count)
+            slot, count = pending.pop(next_yield)
+            next_yield += 1
+            if self._copy:
+                batch = tuple(v[:count].copy() for v in self._views[slot])
+                free.append(slot)
+            else:
+                batch = tuple(v[:count] for v in self._views[slot])
+                held.append(slot)
+                while len(held) > keep:
+                    free.append(held.popleft())
+            schedule()
+            yield batch
+
+    # -- shutdown ---------------------------------------------------------
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        for _ in self._procs:
+            try:
+                self._task_q.put(_SENTINEL)
+            except Exception:
+                pass
+        for p in self._procs:
+            p.join(timeout=5.0)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=1.0)
+        for q in (self._task_q, self._done_q):
+            try:
+                q.close()
+                q.join_thread()
+            except Exception:
+                pass
+        for slot in self._shms:
+            for shm in slot:
+                try:
+                    shm.close()
+                    shm.unlink()
+                except Exception:
+                    pass
+        self._shms, self._views = [], []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

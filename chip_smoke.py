@@ -26,11 +26,23 @@ of which fails the run when wrong:
    plain twins, the least time the card could take (and the share of it
    reached), the TFLOP/s, and one PyTorch call computing the same
    function (``scaled_dot_product_attention``), timed here as a yardstick
-   only.
+   only;
+6. the rest of the data-parallel surface over NCCL in a fresh process
+   group: (a) the MNIST example (``examples/train_mnist.py``, ``main(argv)``
+   in-process) at its defaults (unit 1000, global batch 256, 5 epochs,
+   8192/1024 images) at ZeRO stages 0-3, with double buffering, with the
+   overlapped gradient launch off, on the int8 and fp8 gradient wires, and
+   stopped after 3 epochs and resumed from its checkpoint; each run's
+   accuracy, losses, parameter digest, img/s and wire are checked
+   (stages 1-3 equal stage 0 within 1e-5 relative, overlap off bitwise
+   equal to on, the resumed digest equal to the uninterrupted one);
+   (b) 3 full-width LM steps of phase 4's model, data and seed under
+   ZeRO-3 with every flash kernel launched 8 times a step and the losses
+   equal to phase 4's within 1e-4.
 
-The last two lines of standard output are the card's ``name, power.limit``
-line before a JSON line of per-kernel numbers, then
-``{"ok": true, "device": {...}}``.
+Standard output ends with a JSON line ``{"train": ...}``, a JSON line
+``{"dp_surface": ...}``, the card's ``name, power.limit`` line, a JSON line
+of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -248,7 +260,9 @@ def phase_tiny_lm(torch, log):
 # ---------------------------------------------------------------------------
 
 
-def phase_train(torch, K, log, n_warm, n_timed):
+def build_lm(torch, log, zero_stage=0):
+    """The full-width LM train step over NCCL at ``zero_stage``:
+    ``(step, (tokens, labels), tokens per step)``."""
     import numpy as np
 
     from chainermn_tpu_torch import (create_communicator,
@@ -274,7 +288,7 @@ def phase_train(torch, K, log, n_warm, n_timed):
     opt = create_multi_node_optimizer(
         torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
                           eps=1e-8, weight_decay=0.1),
-        comm,
+        comm, zero_stage=zero_stage,
     )
     opt.init()
     rng = np.random.RandomState(0)
@@ -290,7 +304,13 @@ def phase_train(torch, K, log, n_warm, n_timed):
         return fused_cross_entropy(h, model.embed.weight, labs,
                                    chunk=FULL["ce_chunk"])
 
-    step = opt.make_train_step(loss_fn)
+    return opt.make_train_step(loss_fn), (tokens, labels), B * S
+
+
+def phase_train(torch, K, log, n_warm, n_timed):
+    step, batch, n_tokens = build_lm(torch, log)
+    tokens, labels = batch
+    V = FULL["vocab"]
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
@@ -317,14 +337,14 @@ def phase_train(torch, K, log, n_warm, n_timed):
             raise AssertionError(f"{name} never launched on the main path")
     timed = sorted(times[n_warm:])
     med = timed[len(timed) // 2]
-    tok_s = B * S / med
+    tok_s = n_tokens / med
     log(f"median step {med * 1e3:.1f} ms, {tok_s:.0f} tokens/s, peak "
         f"memory {peak / 2**30:.2f} GiB, losses {losses}")
     profile_step(torch, lambda: step((tokens, labels)), log)
     torch.distributed.destroy_process_group()
     return {"step_ms": med * 1e3, "tokens_per_s": tok_s,
             "peak_mem_gib": peak / 2**30, "launches": launches,
-            "steps": steps}
+            "steps": steps, "losses": losses}
 
 
 def kernel_kind(name):
@@ -367,10 +387,11 @@ def _ms_table(d):
                      sorted(d.items(), key=lambda kv: -kv[1]))
 
 
-def profile_step(torch, run_step, log, top=14, top_other=10):
-    """One more train step under ``torch.profiler``: device time by kernel
-    and by kind, the ``other`` kind by family, by source and its largest
-    kernels, and the device's idle share of the step's wall time."""
+def profile_step(torch, run_step, log, top=14, top_other=10, what="step"):
+    """One more train step (or ``what``) under ``torch.profiler``: device
+    time by kernel and by kind, the ``other`` kind by family, by source
+    and its largest kernels, and the device's idle share of the wall
+    time.  Returns ``(wall ms, device busy ms)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -397,7 +418,7 @@ def profile_step(torch, run_step, log, top=14, top_other=10):
             fam = next((f for f, words in OTHER_FAMILIES
                         if any(w in low for w in words)), "elementwise")
             families[fam] = families.get(fam, 0.0) + ms
-    log(f"profile: step wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+    log(f"profile: {what} wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
         f"idle share {1 - busy / wall_ms:.3f}; by kind (ms): "
         + _ms_table(kinds))
     for ms, count, key in rows[:top]:
@@ -420,6 +441,7 @@ def profile_step(torch, run_step, log, top=14, top_other=10):
     for ms, count, key in [r for r in rows
                            if kernel_kind(r[2]) == "other"][:top_other]:
         log(f"profile:   other {ms:9.2f} ms  x{count:<5d} {key[:160]}")
+    return wall_ms, busy
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +532,176 @@ def phase_time(torch, K, log):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the rest of the data-parallel surface
+# ---------------------------------------------------------------------------
+
+MNIST_ACC = 0.99        # last-epoch val/accuracy of every run
+ZERO_RTOL = 1e-5        # stages 1-3 against stage 0, each epoch's mean loss
+LM_ZERO3_STEPS = 3
+LM_ZERO3_ATOL = 1e-4    # ZeRO-3 LM losses against phase 4's
+
+
+def run_mnist(log, argv, env=None):
+    """``train_mnist.main(argv)`` in this process with ``env`` set for the
+    run; its output goes to the log behind a ``|``.  Returns its result
+    with the run's wall time."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch.examples import train_mnist
+
+    env = env or {}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = train_mnist.main(argv)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for line in buf.getvalue().splitlines():
+            log("  | " + line)
+    out["wall_s"] = time.perf_counter() - t
+    return out
+
+
+def phase_mnist(torch, log, card):
+    """6a: the MNIST example at its defaults over NCCL, every variant."""
+    import tempfile
+
+    from chainermn_tpu_torch.global_except_hook import remove_hook
+
+    base = ["--communicator", "pure_nccl"]
+    plan = [
+        ("zero0", [], None),
+        ("zero1", ["--zero-stage", "1"], None),
+        ("zero2", ["--zero-stage", "2"], None),
+        ("zero3", ["--zero-stage", "3"], None),
+        ("double_buffering", ["--double-buffering"], None),
+        ("overlap_off", [], {"CHAINERMN_TPU_OVERLAP": "0"}),
+        ("int8", ["--comm-dtype", "int8"], None),
+        ("fp8", ["--comm-dtype", "fp8"], None),
+    ]
+    runs = {}
+    for name, extra, env in plan:
+        log(f"mnist {name}: {' '.join(base + extra)}"
+            + (f" with {env}" if env else ""))
+        runs[name] = run_mnist(log, base + extra, env)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = base + ["--checkpoint-dir", tmp, "--checkpoint-every", "10"]
+        log(f"mnist stopped: {' '.join(ck)} --epochs 3")
+        runs["stopped"] = run_mnist(log, ck + ["--epochs", "3"])
+        log(f"mnist resumed: {' '.join(ck)} --epochs 5")
+        runs["resumed"] = run_mnist(log, ck + ["--epochs", "5"])
+    remove_hook()          # the checkpointed runs installed it
+    wall, busy = profile_step(
+        torch, lambda: run_mnist(log, base + ["--epochs", "1"]), log,
+        top=6, top_other=0, what="mnist run of 1 epoch (set-up included)")
+
+    failed, summary = [], {}
+    ref = runs["zero0"]
+    log(f"mnist results on {card}:")
+    for name, r in runs.items():
+        acc = r["metrics"]["val/accuracy"]
+        ips = sorted(r["img_per_s"])[len(r["img_per_s"]) // 2]
+        mean = r["epoch_mean_losses"]
+        summary[name] = {"accuracy": acc, "epoch_mean_losses": mean,
+                         "digest": r["params_digest"], "img_per_s": ips,
+                         "wire": r["wire"] or "full", "gstep": r["gstep"],
+                         "wall_s": r["wall_s"]}
+        line = (f"mnist {name}: val/accuracy {acc:.4f}, mean train loss by "
+                f"epoch {' '.join(f'{x:.6g}' for x in mean)}, digest "
+                f"{r['params_digest']}, {ips:,.0f} img/s (median epoch), "
+                f"wire {summary[name]['wire']}, {r['wall_s']:.1f}s")
+        if name != "stopped" and not acc >= MNIST_ACC:
+            failed.append(f"{name} accuracy {acc} < {MNIST_ACC}")
+        if name in ("zero1", "zero2", "zero3"):
+            pairs = list(zip(mean, ref["epoch_mean_losses"]))
+            rel = max(abs(a - b) / abs(b) if b else float(a != b)
+                      for a, b in pairs)
+            bitwise = (mean == ref["epoch_mean_losses"]
+                       and r["params_digest"] == ref["params_digest"])
+            summary[name].update(max_rel_vs_zero0=rel, bitwise=bitwise)
+            line += f"; vs zero0 max rel {rel:.3g}, bitwise {bitwise}"
+            if not all(abs(a - b) <= ZERO_RTOL * abs(b) for a, b in pairs):
+                failed.append(f"{name} losses {rel} from zero0's")
+        if name == "overlap_off":
+            bitwise = (mean == ref["epoch_mean_losses"]
+                       and r["params_digest"] == ref["params_digest"])
+            summary[name]["bitwise"] = bitwise
+            line += f"; bitwise equal to overlap on: {bitwise}"
+            if not bitwise:
+                failed.append("overlap off differs from overlap on")
+        log(line)
+    if runs["int8"]["wire"] != "int8":
+        failed.append(f"int8 run took the {runs['int8']['wire']} wire")
+    log(f"mnist fp8 wire taken: {runs['fp8']['wire']} (int8 is the fallback "
+        "where the backend does not sum float8_e4m3fn)")
+    stopped, resumed = runs["stopped"], runs["resumed"]
+    log(f"mnist checkpoint: stopped at gstep {stopped['gstep']}, resumed "
+        f"from iteration {resumed['resumed_from']}, digest "
+        f"{resumed['params_digest']} against uninterrupted "
+        f"{ref['params_digest']}")
+    if stopped["resumed_from"] is not None or resumed["resumed_from"] is None:
+        failed.append("the checkpointed rerun did not resume")
+    if resumed["params_digest"] != ref["params_digest"]:
+        failed.append("the resumed run's digest differs from the "
+                      "uninterrupted run's")
+    if resumed["gstep"] != ref["gstep"]:
+        failed.append(f"resumed gstep {resumed['gstep']} != {ref['gstep']}")
+    if failed:
+        raise AssertionError("phase 6a: " + "; ".join(failed))
+    summary["profile_1_epoch"] = {"wall_ms": wall, "busy_ms": busy,
+                                  "idle_share": 1 - busy / wall}
+    return summary
+
+
+def phase_lm_zero3(torch, K, log, train):
+    """6b: phase 4's model, data and seed under ZeRO-3, overlap on."""
+    step, batch, n_tokens = build_lm(torch, log, zero_stage=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for i in range(LM_ZERO3_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(batch).item())
+        times.append(time.perf_counter() - t)
+        log(f"zero3 step {i}: loss {losses[-1]:.5f} {times[-1] * 1e3:.1f} ms")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.distributed.destroy_process_group()
+    med = sorted(times)[len(times) // 2] * 1e3
+    want = train["losses"][:LM_ZERO3_STEPS]
+    diff = max(abs(a - b) for a, b in zip(losses, want))
+    bitwise = losses == want
+    log(f"zero3 LM: launches {launches} over {LM_ZERO3_STEPS} steps; losses "
+        f"{losses} against phase 4's {want}: max diff {diff:.3g}, bitwise "
+        f"{bitwise}; median step {med:.1f} ms (phase 4 "
+        f"{train['step_ms']:.1f}), peak {peak:.2f} GiB (phase 4 "
+        f"{train['peak_mem_gib']:.2f})")
+    failed = [f"{name} launched {launches[name]} times, not "
+              f"{FULL['n_layers'] * LM_ZERO3_STEPS}" for name in KERNELS
+              if launches[name] != FULL["n_layers"] * LM_ZERO3_STEPS]
+    if not diff <= LM_ZERO3_ATOL:
+        failed.append(f"losses {diff} from phase 4's")
+    if failed:
+        raise AssertionError("phase 6b: " + "; ".join(failed))
+    return {"losses": losses, "phase4_losses": want, "max_diff": diff,
+            "bitwise": bitwise, "step_ms": med, "peak_gib": peak,
+            "phase4_step_ms": train["step_ms"],
+            "phase4_peak_gib": train["peak_mem_gib"],
+            "tokens_per_s": n_tokens / med * 1e3, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -560,6 +752,9 @@ def main(argv=None) -> int:
     phase_tiny_lm(torch, log)
     train = phase_train(torch, K, log, N_WARMUP, N_TIMED)
     times = phase_time(torch, K, log)
+    dp_surface = {"mnist": phase_mnist(torch, log, card),
+                  "lm_zero3": phase_lm_zero3(torch, K, log, train),
+                  "card": card}
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -576,6 +771,7 @@ def main(argv=None) -> int:
     summary = {k: train[k] for k in ("step_ms", "tokens_per_s",
                                      "peak_mem_gib", "steps")}
     print(json.dumps({"train": summary}), flush=True)
+    print(json.dumps({"dp_surface": dp_surface}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

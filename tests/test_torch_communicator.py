@@ -157,13 +157,11 @@ def test_factory_names_and_errors():
     assert (comm.rank, comm.size, comm.intra_rank, comm.intra_size,
             comm.inter_rank, comm.inter_size) == (0, 1, 0, 1, 0, 1)
     for name in ("flat", "xla_ici", "pure_nccl", "hierarchical",
-                 "non_cuda_aware"):
+                 "non_cuda_aware", "two_dimensional", "single_host",
+                 "single_node"):
         assert create_communicator(name, device="cpu").size == 1
     with pytest.raises(ValueError, match="choose from"):
         create_communicator("bogus", device="cpu")
-    for name in ("two_dimensional", "single_host", "single_node"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-            create_communicator(name, device="cpu")
     with pytest.raises(ValueError, match="bucket_bytes"):
         create_communicator("naive", device="cpu", bucket_bytes=-1)
     if not torch.cuda.is_available():

@@ -141,9 +141,15 @@ def test_loss_scale_and_adamw_match_reference(devices8):
 def test_contract_errors():
     comm = create_communicator("xla_ici", device="cpu")
     p = torch.nn.Parameter(torch.zeros(4, 1))
-    with pytest.raises(NotImplementedError, match="A5"):
-        create_multi_node_optimizer(torch.optim.SGD([p], lr=0.1), comm,
-                                    zero_stage=1)
+    zero = create_multi_node_optimizer(torch.optim.SGD([p], lr=0.1), comm,
+                                       zero_stage=1)
+    with pytest.raises(RuntimeError, match="init"):
+        zero.make_train_step(lambda b: b.sum())
+    q = torch.nn.Parameter(torch.zeros(2))
+    two_groups = torch.optim.SGD([{"params": [p]},
+                                  {"params": [q], "lr": 0.5}], lr=0.1)
+    with pytest.raises(ValueError, match="hyperparameters"):
+        create_multi_node_optimizer(two_groups, comm, zero_stage=2).init()
     with pytest.raises(ValueError, match="zero_stage"):
         MultiNodeOptimizer(torch.optim.SGD([p], lr=0.1), comm, zero_stage=4)
     mno = create_multi_node_optimizer(torch.optim.SGD([p], lr=0.1), comm)
