@@ -20,11 +20,28 @@ flax path (shape)                                      port key (shape)
 
 The reference's MNIST ``MLP`` maps onto :class:`models.mlp.MLP` by
 :func:`mlp_flax_to_state_dict` (``Dense_i/kernel`` transposed into
-``l{i+1}.weight``).  Every move is a reshape or a transpose, so the round
-trip is bit-exact.
+``l{i+1}.weight``).
+
+The convnets (``ResNet*``, ``AlexNet``, ``NiN``, ``GoogLeNet``) name their
+modules as flax does, so :func:`convnet_flax_to_state_dict` maps flax's
+``{"params", "batch_stats"}`` by path, ``a/b/leaf`` onto ``a.b.<name>``:
+
+=====================================  ===================================
+flax leaf (shape)                      port name (shape)
+=====================================  ===================================
+``Conv``  ``kernel`` (kh, kw, in, out)  ``weight`` (out, in, kh, kw)
+``Dense`` ``kernel`` (in, out)          ``weight`` (out, in)
+``bias``                               ``bias``
+``BatchNorm`` ``scale``                 ``weight``
+``batch_stats`` ``mean`` / ``var``      ``running_mean`` / ``running_var``
+=====================================  ===================================
+
+Every move is a reshape or a transpose, so each round trip is bit-exact.
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -131,3 +148,56 @@ def mlp_state_dict_to_flax(state_dict) -> dict:
     return {f"Dense_{i}": {
         "kernel": np.ascontiguousarray(sd[f"l{i + 1}.weight"].T),
         "bias": sd[f"l{i + 1}.bias"]} for i in range(3)}
+
+
+# Conv kernels HWIO <-> OIHW; dense kernels (in, out) <-> (out, in).
+_TO_TORCH = {4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_FLAX = {4: (2, 3, 1, 0), 2: (1, 0)}
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def convnet_flax_to_state_dict(variables) -> dict:
+    """A convnet's flax ``{"params", "batch_stats"}`` (numpy leaves;
+    ``batch_stats`` absent for the models without BatchNorm) -> the port
+    model's ``state_dict``."""
+    sd = {}
+
+    def walk(tree, prefix, stats):
+        for name, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{name}.", stats)
+            elif stats:
+                sd[prefix + _STATS[name]] = _t(v)
+            elif name == "kernel":
+                a = np.asarray(v)
+                sd[prefix + "weight"] = _t(a.transpose(_TO_TORCH[a.ndim]))
+            else:
+                sd[prefix + {"scale": "weight", "bias": "bias"}[name]] = _t(v)
+
+    walk(variables["params"], "", False)
+    walk(variables.get("batch_stats", {}), "", True)
+    return sd
+
+
+def convnet_state_dict_to_flax(state_dict) -> dict:
+    """The inverse of :func:`convnet_flax_to_state_dict`:
+    ``{"params": ..., "batch_stats": ...}`` with numpy leaves
+    (``batch_stats`` empty for the models without BatchNorm)."""
+    out = {"params": {}, "batch_stats": {}}
+    inverse = {v: k for k, v in _STATS.items()}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        a = _np(t)
+        if leaf in inverse:
+            tree, leaf = out["batch_stats"], inverse[leaf]
+        else:
+            tree = out["params"]
+            if leaf == "weight" and a.ndim > 1:
+                leaf, a = "kernel", np.ascontiguousarray(
+                    a.transpose(_TO_FLAX[a.ndim]))
+            elif leaf == "weight":
+                leaf = "scale"
+        for name in path:
+            tree = tree.setdefault(name, {})
+        tree[leaf] = a
+    return out

@@ -1,0 +1,80 @@
+"""The optax pieces of the ImageNet example, as ``torch.optim`` code.
+
+* :func:`linear_schedule` is ``optax.linear_schedule``: a function of the
+  update count, which starts at 0, so the first update takes
+  ``init_value`` (0 in the example's warm-up).  The multi-node optimizer
+  takes it as ``lr_schedule`` and counts updates: under double buffering
+  the reduce-only first step is not one.
+* ``optax.sgd(lr, momentum=m)`` is ``torch.optim.SGD(params, lr,
+  momentum=m)`` (``dampening=0``, no Nesterov, no weight decay): both add
+  the gradient to the decayed trace first and scale the trace by the
+  learning rate after.
+* :class:`LARS` is ``optax.lars(lr, weight_decay=wd, momentum=m)``, whose
+  order differs from torch SGD's: add ``wd * p``, scale by the trust
+  ratio ``trust_coefficient * ||p|| / ||u||`` (1 where either norm is 0),
+  scale by the learning rate, and only then the momentum trace.  The
+  ratio is per parameter tensor; under ZeRO the multi-node optimizer
+  rebuilds it over one flat shard, so the ratio is per shard there, as in
+  the reference, which hands optax the flat shard.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def linear_schedule(init_value: float, end_value: float,
+                    transition_steps: int) -> Callable[[int], float]:
+    """``optax.linear_schedule``: ``init_value`` at count 0, linear to
+    ``end_value`` at ``transition_steps``, held there after; a constant
+    ``init_value`` when ``transition_steps <= 0``."""
+    if transition_steps <= 0:
+        return lambda count: init_value
+
+    def schedule(count: int) -> float:
+        frac = 1.0 - min(max(count, 0), transition_steps) / transition_steps
+        return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+class LARS(torch.optim.Optimizer):
+    """``optax.lars`` with ``eps=0``, no masks and no Nesterov."""
+
+    def __init__(self, params, lr: float = 0.0, momentum: float = 0.9,
+                 weight_decay: float = 0.0, trust_coefficient: float = 0.001):
+        if lr < 0.0 or weight_decay < 0.0 or not 0.0 <= momentum < 1.0:
+            raise ValueError(f"invalid LARS hyperparameters: lr={lr}, "
+                             f"momentum={momentum}, "
+                             f"weight_decay={weight_decay}")
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay,
+                                      trust_coefficient=trust_coefficient))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = p.grad
+                if group["weight_decay"]:
+                    u = u.add(p, alpha=group["weight_decay"])
+                pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+                ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                                    group["trust_coefficient"] * pn / un)
+                u = u * ratio * group["lr"]
+                state = self.state[p]
+                buf = state.get("momentum_buffer")
+                if buf is None:
+                    buf = state["momentum_buffer"] = u.clone()
+                else:
+                    buf.mul_(group["momentum"]).add_(u)
+                p.sub_(buf)
+        return loss

@@ -39,6 +39,16 @@ the communicator's overlap resolves on (:mod:`.communicators.overlap`),
 bit-exact with the eager path; on one rank with a full-precision wire
 neither path moves a byte.
 
+Learning-rate schedules, as optax's: ``lr_schedule(count)`` sets the
+learning rate of every group before each update, ``count`` being the
+number of updates applied before it (the reduce-only first step of
+double buffering is none); the count is part of :meth:`state_dict`.
+
+Model state (BatchNorm statistics): :meth:`make_train_step_with_state`
+runs the forward on this rank's slice with its local batch statistics,
+as the reference does (its BatchNorm has no ``axis_name``), then averages
+the floating buffers over the ranks in one collective.
+
 AdamW note: ``torch.optim.AdamW`` decays the parameter multiplicatively
 before the Adam step, ``optax.adamw`` adds ``weight_decay * param`` to the
 update before the learning-rate scale.  The two agree to fp32 rounding;
@@ -95,18 +105,23 @@ class MultiNodeOptimizer:
 
     ``double_buffering``: step ``t`` applies step ``t-1``'s averaged
     gradients (the first step only reduces and leaves the parameters
-    unchanged) — the reference's one-step-stale semantics."""
+    unchanged) — the reference's one-step-stale semantics.
+    ``lr_schedule``: the learning rate as a function of the update count
+    (an optax schedule's contract)."""
 
     def __init__(self, actual_optimizer: torch.optim.Optimizer,
                  communicator: CommunicatorBase,
-                 double_buffering: bool = False, zero_stage: int = 0):
+                 double_buffering: bool = False, zero_stage: int = 0,
+                 lr_schedule: Callable[[int], float] | None = None):
         if zero_stage not in (0, 1, 2, 3):
             raise ValueError("zero_stage must be 0, 1, 2 or 3")
         self.actual_optimizer = actual_optimizer
         self.communicator = communicator
         self.double_buffering = double_buffering
         self.zero_stage = zero_stage
+        self.lr_schedule = lr_schedule
         self.step_count = 0
+        self.update_count = 0
         self._params = [p for group in actual_optimizer.param_groups
                         for p in group["params"] if p.requires_grad]
         self._stale = None      # double buffering: last step's mean grads
@@ -132,7 +147,7 @@ class MultiNodeOptimizer:
         the optimizer over it, and under stage 3 keep the master as the
         shard from here on."""
         self.communicator.broadcast_data(self._params)
-        self.step_count = 0
+        self.step_count = self.update_count = 0
         self._stale = None
         if self.zero_stage:
             self._shard = torch.nn.Parameter(
@@ -140,6 +155,15 @@ class MultiNodeOptimizer:
             self._inner = self._rebuild_inner()
             if self.zero_stage == 3:
                 self._release_params()
+
+    def _schedule_lr(self):
+        """Before an update: the scheduled learning rate into every group
+        of the wrapped optimizer (ZeRO copies it to the rebuilt one)."""
+        if self.lr_schedule is not None:
+            lr = float(self.lr_schedule(self.update_count))
+            for group in self.actual_optimizer.param_groups:
+                group["lr"] = lr
+        self.update_count += 1
 
     # -- ZeRO plumbing ---------------------------------------------------
     def _rebuild_inner(self) -> torch.optim.Optimizer:
@@ -228,6 +252,7 @@ class MultiNodeOptimizer:
             # (replicated) parameters, as the reference does.
             with torch.no_grad():
                 self._shard.copy_(self._my_shard(self._pack_params()))
+        self._schedule_lr()
         inner = self._inner
         for k, v in self.actual_optimizer.param_groups[0].items():
             if k != "params":
@@ -365,18 +390,67 @@ class MultiNodeOptimizer:
             if loss_scale is not None:
                 for p in params:
                     p.grad.div_(loss_scale)
+            self._schedule_lr()
             self.actual_optimizer.step()
             return loss
 
         return step
 
+    def make_train_step_with_state(self, loss_fn: Callable,
+                                   model_state: torch.nn.Module,
+                                   overlap: bool | None = None,
+                                   local_batch: bool = False):
+        """Build ``step(batch) -> loss`` for a model with non-trainable
+        state (BatchNorm statistics; the reference's ``batch_stats``).
+
+        ``loss_fn(local_batch)`` runs the forward in train mode, which
+        normalises with this rank's batch statistics and updates the
+        buffers of the module ``model_state`` in place.  After the step the floating buffers are averaged over
+        the ranks, packed into one collective per dtype; integer buffers
+        stay as they are.  The returned loss is the mean over the ranks.
+        Every ZeRO stage, the backward overlap and ``double_buffering``
+        apply as in :meth:`make_train_step`; under double buffering step
+        ``t`` applies step ``t-1``'s gradients while the buffers update
+        from step ``t``.  Gradient accumulation is not exposed, as in the
+        reference."""
+        step = self.make_train_step(loss_fn, overlap=overlap,
+                                    local_batch=local_batch)
+        floating = [b for b in model_state.buffers()
+                    if b.is_floating_point()]
+
+        def step_with_state(batch):
+            loss = step(batch)
+            self._mean_over_ranks(floating)
+            return loss
+
+        return step_with_state
+
+    def _mean_over_ranks(self, tensors):
+        """Replace each tensor by its mean over the ranks, one collective
+        per dtype (none at one rank)."""
+        comm = self.communicator
+        if comm.size == 1 or not tensors:
+            return
+        by_dtype = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        with torch.no_grad():
+            for group in by_dtype.values():
+                flat = comm.allreduce(
+                    torch.cat([t.reshape(-1) for t in group]), "mean")
+                off = 0
+                for t in group:
+                    t.copy_(flat[off:off + t.numel()].view_as(t))
+                    off += t.numel()
+
     # -- checkpoint state ------------------------------------------------
     def state_dict(self) -> dict:
-        """Step count, the inner optimizer's state, the stale gradient
-        (double buffering) and, under stage 3, this rank's master shard."""
+        """Step and update counts (the schedule's count), the inner
+        optimizer's state, the stale gradient (double buffering) and, under
+        stage 3, this rank's master shard."""
         inner = self._inner if self.zero_stage else self.actual_optimizer
-        sd = {"step": self.step_count, "inner": inner.state_dict(),
-              "stale": self._stale}
+        sd = {"step": self.step_count, "updates": self.update_count,
+              "inner": inner.state_dict(), "stale": self._stale}
         if self.zero_stage == 3:
             sd["shard"] = self._shard.detach()
         return sd
@@ -385,6 +459,7 @@ class MultiNodeOptimizer:
         inner = self._inner if self.zero_stage else self.actual_optimizer
         inner.load_state_dict(sd["inner"])
         self.step_count = int(sd["step"])
+        self.update_count = int(sd["updates"])
         stale = sd.get("stale")
         if stale is None:
             self._stale = None
@@ -427,11 +502,15 @@ class MultiNodeOptimizer:
         return self.step_count
 
 
-def create_multi_node_optimizer(actual_optimizer: torch.optim.Optimizer,
-                                communicator: CommunicatorBase,
-                                double_buffering: bool = False,
-                                zero_stage: int = 0) -> MultiNodeOptimizer:
-    """Reference-parity factory (ChainerMN's ``create_multi_node_optimizer``)."""
+def create_multi_node_optimizer(
+        actual_optimizer: torch.optim.Optimizer,
+        communicator: CommunicatorBase, double_buffering: bool = False,
+        zero_stage: int = 0,
+        lr_schedule: Callable[[int], float] | None = None
+) -> MultiNodeOptimizer:
+    """Reference-parity factory (ChainerMN's ``create_multi_node_optimizer``);
+    ``lr_schedule`` carries what an optax schedule carries in the
+    reference's optimizer."""
     return MultiNodeOptimizer(actual_optimizer, communicator,
                               double_buffering=double_buffering,
-                              zero_stage=zero_stage)
+                              zero_stage=zero_stage, lr_schedule=lr_schedule)

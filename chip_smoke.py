@@ -38,11 +38,26 @@ of which fails the run when wrong:
    equal to on, the resumed digest equal to the uninterrupted one);
    (b) 3 full-width LM steps of phase 4's model, data and seed under
    ZeRO-3 with every flash kernel launched 8 times a step and the losses
-   equal to phase 4's within 1e-4.
+   equal to phase 4's within 1e-4;
+7. the ImageNet path over NCCL in a fresh process group: (a)
+   ``bench.py::bench_resnet``'s step (ResNet-50, 1000 classes, batch 256
+   of 224x224x3, SGD lr 0.1 momentum 0.9 through
+   ``make_train_step_with_state``, a resident ``RandomState(0)`` batch)
+   on fp32 and on uint8 input: median step, img/s, peak memory, the
+   model-FLOP share of the bf16 peak and one profiled step (device time
+   by kind, idle share); (b) the ImageNet example
+   (``examples/train_imagenet.py``, ``main(argv)`` in-process) at full
+   width with SGD, with LARS, and stopped at a checkpoint and resumed
+   (the loaded state's crc32 equal to the saved one's, the end within a
+   stated tolerance of the uninterrupted run); (c) AlexNet, NiN and
+   GoogLeNet at 224 px with dropout on; (d) 3 steps of (a) under ZeRO-3,
+   the losses within a stated tolerance of (a)'s.  No TPU kernel is on
+   this path: it checks the port's cuDNN/ATen path end to end.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
-``{"dp_surface": ...}``, the card's ``name, power.limit`` line, a JSON line
-of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
+``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, the card's
+``name, power.limit`` line, a JSON line of per-kernel numbers, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -387,11 +402,15 @@ def _ms_table(d):
                      sorted(d.items(), key=lambda kv: -kv[1]))
 
 
-def profile_step(torch, run_step, log, top=14, top_other=10, what="step"):
+def profile_step(torch, run_step, log, top=14, top_other=10, what="step",
+                 kind_of=None):
     """One more train step (or ``what``) under ``torch.profiler``: device
-    time by kernel and by kind, the ``other`` kind by family, by source
-    and its largest kernels, and the device's idle share of the wall
-    time.  Returns ``(wall ms, device busy ms)``."""
+    time by kernel and by kind, and the device's idle share of the wall
+    time; with the LM's :func:`kernel_kind` the ``other`` kind by family,
+    by source and its largest kernels, with another ``kind_of`` the
+    largest kernel of each kind.  Returns ``(wall ms, device busy ms, ms
+    by kind)``."""
+    kind_of = kind_of or kernel_kind
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -411,7 +430,7 @@ def profile_step(torch, run_step, log, top=14, top_other=10, what="step"):
     busy = sum(r[0] for r in rows)
     kinds, families = {}, {}
     for ms, _, key in rows:
-        kind = kernel_kind(key)
+        kind = kind_of(key)
         kinds[kind] = kinds.get(kind, 0.0) + ms
         if kind == "other":
             low = key.lower()
@@ -423,9 +442,14 @@ def profile_step(torch, run_step, log, top=14, top_other=10, what="step"):
         + _ms_table(kinds))
     for ms, count, key in rows[:top]:
         log(f"profile:   {ms:9.2f} ms  x{count:<5d} {key[:90]}")
+    if kind_of is not kernel_kind:
+        for kind in sorted(kinds, key=lambda k: -kinds[k]):
+            ms, count, key = next(r for r in rows if kind_of(r[2]) == kind)
+            log(f"profile:   largest {kind}: {ms:.2f} ms x{count} {key[:120]}")
+        return wall_ms, busy, kinds
     sources = {}
     for ev in prof.events():
-        ks = [k for k in ev.kernels if kernel_kind(k.name) == "other"]
+        ks = [k for k in ev.kernels if kind_of(k.name) == "other"]
         if not ks:
             continue
         path, e = [], ev
@@ -439,9 +463,9 @@ def profile_step(torch, run_step, log, top=14, top_other=10, what="step"):
     log("profile: other by family (ms): " + _ms_table(families))
     log("profile: other by source (ms): " + _ms_table(sources))
     for ms, count, key in [r for r in rows
-                           if kernel_kind(r[2]) == "other"][:top_other]:
+                           if kind_of(r[2]) == "other"][:top_other]:
         log(f"profile:   other {ms:9.2f} ms  x{count:<5d} {key[:160]}")
-    return wall_ms, busy
+    return wall_ms, busy, kinds
 
 
 # ---------------------------------------------------------------------------
@@ -599,7 +623,7 @@ def phase_mnist(torch, log, card):
         log(f"mnist resumed: {' '.join(ck)} --epochs 5")
         runs["resumed"] = run_mnist(log, ck + ["--epochs", "5"])
     remove_hook()          # the checkpointed runs installed it
-    wall, busy = profile_step(
+    wall, busy, _ = profile_step(
         torch, lambda: run_mnist(log, base + ["--epochs", "1"]), log,
         top=6, top_other=0, what="mnist run of 1 epoch (set-up included)")
 
@@ -702,6 +726,356 @@ def phase_lm_zero3(torch, K, log, train):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the ImageNet path
+# ---------------------------------------------------------------------------
+
+# bench.py::bench_resnet's step: ResNet-50, 1000 classes, 224 px, batch 256.
+RESNET = dict(batch=256, image=224, classes=1000)
+R_WARM, R_TIMED = 3, 10
+R_LOSS0_WINDOW = 2.0        # step-0 loss within this of ln 1000
+R_FLOPS_PER_IMAGE = 24.6e9  # 3 x 2 x ResNet-50's ~4.1 GMACs forward
+# The example at full width: 3 steps an epoch, 768 training and 256
+# validation images (an npz of seeded noise: the synthetic dataset's 1000
+# class prototypes alone take seconds of host time to draw, each run).
+EX_STEPS, EX_TRAIN, EX_VAL = 3, 768, 256
+# A resumed run against the uninterrupted one: cuDNN's weight-gradient
+# kernels and the max-pool backward may accumulate in another order from
+# run to run, so the two runs' gradients may differ in their last bits; over 6 warm-up steps (lr at
+# most 0.005) that moves no parameter tensor by more than RESUME_REL_L2 of
+# its norm, nor a loss by more than RESUME_LOSS_ATOL.
+RESUME_REL_L2, RESUME_LOSS_ATOL = 1e-4, 1e-3
+CONVNET_STEPS = 3
+# ZeRO-3 with state against 7a's steps 0-2: the same arithmetic, with the
+# same non-deterministic gradient accumulation as above, after updates of
+# lr 0.1.
+Z3_STATE_STEPS, Z3_STATE_LOSS_ATOL = 3, 1e-3
+
+
+def resnet_kind(name):
+    """Kind of a kernel of the convnet steps, from its name."""
+    low = name.lower()
+    for kind, words in (
+            ("nccl", ("nccl",)),
+            ("copy", ("memcpy", "memset", "copy", "nchwtonhwc", "nhwctonchw")),
+            ("conv (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
+            ("batch-norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+            ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+            ("optimizer", ("multi_tensor_apply", "foreach")),
+            ("pooling", ("pool",)),
+            ("reduction", ("reduce",))):
+        if any(w in low for w in words):
+            return kind
+    return "elementwise"
+
+
+def forward_macs(torch, model, image):
+    """Multiply-adds of one image's forward, from the conv and dense
+    shapes (a hook on each layer, one forward of a batch of one)."""
+    from chainermn_tpu_torch.models.layers import Conv, Dense
+
+    macs = [0]
+
+    def hook(mod, inputs, out):
+        macs[0] += out.numel() * mod.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv, Dense))]
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, image, image, 3, device="cuda"), train=False)
+    finally:
+        for h in handles:
+            h.remove()
+    return macs[0]
+
+
+def resnet_batch(torch, input_dtype):
+    """bench_resnet's resident batch: ``RandomState(0)`` fp32 ``randn``
+    images (or uint8 ``randint``), then ``randint(0, 1000)`` labels."""
+    import numpy as np
+
+    n, s = RESNET["batch"], RESNET["image"]
+    rng = np.random.RandomState(0)
+    if input_dtype == "uint8":
+        x = rng.randint(0, 256, size=(n, s, s, 3), dtype=np.uint8)
+    else:
+        x = rng.randn(n, s, s, 3).astype(np.float32)
+    y = rng.randint(0, RESNET["classes"], size=n)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def build_resnet(torch, comm, zero_stage=0):
+    """bench_resnet's step through the port: ResNet-50 from seed 0, SGD lr
+    0.1 momentum 0.9, ``make_train_step_with_state``; uint8 images are
+    decoded on the device (x / 127.5 - 1 in bf16)."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.models import ResNet50
+
+    model = ResNet50(num_classes=RESNET["classes"], device="cuda", seed=0)
+    opt = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), comm,
+        zero_stage=zero_stage)
+    opt.init()
+
+    def loss_fn(batch):
+        x, y = batch
+        if x.dtype == torch.uint8:
+            x = x.to(torch.bfloat16) / 127.5 - 1.0
+        return F.cross_entropy(model(x, train=True), y)
+
+    return model, opt, opt.make_train_step_with_state(loss_fn, model)
+
+
+def timed_steps(torch, step, batch, n_warm, n_timed):
+    """``n_warm`` then ``n_timed`` steps back to back, no readback between
+    them: per-step device time from CUDA events between the steps, wall
+    time of the timed chain, and every loss (read once, at the end)."""
+    losses = [step(batch) for _ in range(n_warm)]
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
+    t = time.perf_counter()
+    marks[0].record()
+    for i in range(n_timed):
+        losses.append(step(batch))
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / n_timed * 1e3
+    ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    return ms[len(ms) // 2], wall, [x.item() for x in losses]
+
+
+def phase_resnet(torch, log, card, comm):
+    """7a: bench_resnet's step on fp32 and on uint8 input."""
+    torch.backends.cudnn.benchmark = True
+    out = {}
+    batch32 = None
+    for input_dtype in ("float32", "uint8"):
+        batch = resnet_batch(torch, input_dtype)
+        model, opt, step = build_resnet(torch, comm)
+        flops = 3 * 2 * forward_macs(torch, model, RESNET["image"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        med, wall, losses = timed_steps(torch, step, batch, R_WARM, R_TIMED)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ips = RESNET["batch"] / med * 1e3
+        share = flops * RESNET["batch"] / (med / 1e3) / PEAK_BF16_FLOPS
+        pwall, busy, kinds = profile_step(
+            torch, lambda: step(batch), log, top=12,
+            what=f"resnet50 {input_dtype} step", kind_of=resnet_kind)
+        rec = {"step_ms": med, "chain_wall_ms_per_step": wall,
+               "img_per_s": ips, "peak_gib": peak, "losses": losses,
+               "flops_per_image": flops, "bf16_peak_share": share,
+               "profile": {"wall_ms": pwall, "busy_ms": busy,
+                           "idle_share": 1 - busy / pwall,
+                           "ms_by_kind": kinds}}
+        out[input_dtype] = rec
+        log(f"resnet50 {input_dtype} on {card}: median step {med:.2f} ms "
+            f"(chain wall {wall:.2f} ms/step), {ips:.1f} img/s, peak "
+            f"{peak:.2f} GiB, step-0 loss {losses[0]:.5f}, losses "
+            f"{' '.join(f'{x:.5f}' for x in losses)}; model FLOPs "
+            f"{flops / 1e9:.2f} GFLOP/image, {share:.3f} of the bf16 peak; "
+            f"profiled step idle share {1 - busy / pwall:.3f}")
+        bad = []
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"non-finite loss {losses}")
+        if not abs(losses[0] - math.log(RESNET["classes"])) < R_LOSS0_WINDOW:
+            bad.append(f"step-0 loss {losses[0]} far from ln 1000")
+        if not abs(flops / R_FLOPS_PER_IMAGE - 1) < 0.1:
+            bad.append(f"{flops:.3g} FLOP/image, not ~{R_FLOPS_PER_IMAGE:.3g}")
+        if bad:
+            raise AssertionError(f"phase 7a {input_dtype}: " + "; ".join(bad))
+        if input_dtype == "float32":
+            batch32 = batch
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+    return out, batch32
+
+
+def phase_zero3_state(torch, log, comm, batch, want):
+    """7d: 7a's model, data and seed under ZeRO-3, with state; and the
+    BatchNorm buffers' mean over the ranks at world size 1."""
+    model, opt, step = build_resnet(torch, comm, zero_stage=3)
+    losses = [step(batch).item() for _ in range(Z3_STATE_STEPS)]
+    bufs = [b for b in model.buffers() if b.is_floating_point()]
+    flat = torch.cat([b.reshape(-1) for b in bufs])
+    moved = (comm.allreduce(flat, "mean") - flat).abs().max().item()
+    want = want[:Z3_STATE_STEPS]
+    diff = max(abs(a - b) for a, b in zip(losses, want))
+    log(f"resnet50 zero3 with state: losses {losses} against 7a's {want}: "
+        f"max diff {diff:.3g} (limit {Z3_STATE_LOSS_ATOL}), bitwise "
+        f"{losses == want}; BatchNorm buffers ({flat.numel()} values) moved "
+        f"{moved} by their mean over {comm.size} rank(s)")
+    if not diff <= Z3_STATE_LOSS_ATOL:
+        raise AssertionError(f"phase 7d: ZeRO-3 losses {diff} from 7a's")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return {"losses": losses, "phase7a_losses": want, "max_diff": diff,
+            "bitwise": losses == want, "bn_mean_moved": moved,
+            "bn_values": flat.numel()}
+
+
+def phase_convnets(torch, log, comm, batch):
+    """7c: AlexNet, NiN and GoogLeNet at 224 px, dropout on, on 7a's
+    batch: a few steps each through ``make_train_step``."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.examples.train_imagenet import dropout_seed
+    from chainermn_tpu_torch.models import AlexNet, GoogLeNet, NiN
+
+    out = {}
+    for name, cls in (("alex", AlexNet), ("nin", NiN),
+                      ("googlenet", GoogLeNet)):
+        model = cls(num_classes=RESNET["classes"], device="cuda", seed=0)
+        opt = create_multi_node_optimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9), comm)
+        opt.init()
+        rng = torch.Generator(device="cuda")
+        step = opt.make_train_step(lambda b: F.cross_entropy(
+            model(b[0], train=True, rng=rng), b[1]))
+        losses, times = [], []
+        for i in range(CONVNET_STEPS):
+            rng.manual_seed(dropout_seed(i, comm.rank))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(step(batch).item())
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = {"losses": losses, "step_ms": times}
+        log(f"{name} (dropout on): losses {losses}, step ms "
+            f"{' '.join(f'{x:.1f}' for x in times)}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase 7c: {name} non-finite loss {losses}")
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_imagenet(log, argv):
+    """``train_imagenet.main(argv)`` in this process, its output to the log
+    behind a ``|``; returns its result with the run's wall time."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch.examples import train_imagenet
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = train_imagenet.main(argv)
+    finally:
+        for line in buf.getvalue().splitlines():
+            log("  | " + line)
+    out["wall_s"] = time.perf_counter() - t
+    return out
+
+
+def phase_imagenet_example(torch, log, card, tmp):
+    """7b: the example at full width (ResNet-50, 1000 classes, 224 px,
+    global batch 256) over NCCL: SGD, LARS, and a run stopped at a saved
+    step and resumed, against the uninterrupted SGD run."""
+    import numpy as np
+
+    from chainermn_tpu_torch.global_except_hook import remove_hook
+
+    rng = np.random.default_rng(0)
+    s = RESNET["image"]
+    npz = os.path.join(tmp, "imagenet.npz")
+    np.savez(npz, images=rng.standard_normal((EX_TRAIN, s, s, 3),
+                                             dtype=np.float32),
+             labels=rng.integers(0, RESNET["classes"], EX_TRAIN,
+                                 dtype=np.int32))
+    base = ["--communicator", "pure_nccl", "--arch", "resnet50",
+            "--batchsize", str(RESNET["batch"]), "--data-npz", npz,
+            "--val-size", str(EX_VAL), "--steps", str(EX_STEPS)]
+    ck = ["--checkpoint-dir", os.path.join(tmp, "ck"),
+          "--checkpoint-every", str(EX_STEPS)]
+    plan = [("sgd", ["--epochs", "2"]),
+            ("lars", ["--optimizer", "lars", "--epochs", "1"]),
+            ("stopped", ck + ["--epochs", "1"]),
+            ("resumed", ck + ["--epochs", "2"])]
+    runs = {}
+    try:
+        for name, extra in plan:
+            log(f"imagenet example {name}: {' '.join(base + extra)}")
+            runs[name] = run_imagenet(log, base + extra)
+    finally:
+        remove_hook()          # the checkpointed runs installed it
+    failed, summary = [], {}
+    for name, r in runs.items():
+        losses = [x for epoch in r["step_losses"] for x in epoch]
+        summary[name] = {"losses": losses, "gstep": r["gstep"],
+                         "img_per_s": r["img_per_s"], "wall_s": r["wall_s"],
+                         "metrics": r["metrics"]}
+        log(f"imagenet {name} on {card}: gstep {r['gstep']}, losses "
+            f"{' '.join(f'{x:.5f}' for x in losses)}, img/s by epoch "
+            f"{' '.join(f'{x:.1f}' for x in r['img_per_s'])}, {r['metrics']}")
+        if not losses or not all(math.isfinite(x) for x in losses):
+            failed.append(f"{name} losses {losses}")
+    whole, stopped, resumed = runs["sgd"], runs["stopped"], runs["resumed"]
+    saved = stopped["saved_digests"].get(EX_STEPS)
+    loaded_ok = saved is not None and resumed["loaded_digest"] == saved
+    rel = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+              for a, b in zip(resumed["model"].parameters(),
+                              whole["model"].parameters()))
+    loss_diff = max(abs(a - b) for a, b in zip(
+        resumed["step_losses"][-1], whole["step_losses"][-1]))
+    summary["resume"] = {
+        "resumed_from": resumed["resumed_from"], "loaded_equals_saved":
+        loaded_ok, "saved_digest": saved,
+        "loaded_digest": resumed["loaded_digest"],
+        "param_rel_l2_vs_uninterrupted": rel,
+        "epoch1_loss_diff": loss_diff,
+        "bitwise": resumed["params_digest"] == whole["params_digest"]}
+    log(f"imagenet checkpoint: stopped at gstep {stopped['gstep']} (saved "
+        f"{sorted(stopped['saved_digests'])}), resumed from "
+        f"{resumed['resumed_from']}; loaded state crc32 "
+        f"{resumed['loaded_digest']} against saved {saved}: equal "
+        f"{loaded_ok}; against the uninterrupted run: worst parameter "
+        f"relative L2 {rel:.3g} (limit {RESUME_REL_L2}), epoch-1 loss diff "
+        f"{loss_diff:.3g} (limit {RESUME_LOSS_ATOL}), bitwise "
+        f"{summary['resume']['bitwise']}")
+    if resumed["resumed_from"] != EX_STEPS or not loaded_ok:
+        failed.append("the resumed run did not load the saved state")
+    if resumed["gstep"] != whole["gstep"]:
+        failed.append(f"resumed gstep {resumed['gstep']} != {whole['gstep']}")
+    if not (rel <= RESUME_REL_L2 and loss_diff <= RESUME_LOSS_ATOL):
+        failed.append(f"resumed run {rel}, {loss_diff} from uninterrupted")
+    del runs
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 7b: " + "; ".join(failed))
+    return summary
+
+
+def phase_imagenet(torch, log, card):
+    """Phase 7: 7a, 7d (which reuses 7a's batch), 7c, then 7b."""
+    import tempfile
+
+    from chainermn_tpu_torch import create_communicator
+
+    comm = create_communicator("pure_nccl", device="cuda")
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError("expected NCCL")
+    t0 = time.perf_counter()
+    out = {"card": card}
+    out["resnet50"], batch = phase_resnet(torch, log, card, comm)
+    out["zero3_state"] = phase_zero3_state(
+        torch, log, comm, batch, out["resnet50"]["float32"]["losses"])
+    out["convnets"] = phase_convnets(torch, log, comm, batch)
+    del batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["example"] = phase_imagenet_example(torch, log, card, tmp)
+    torch.distributed.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 7: {out['wall_s']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -755,6 +1129,7 @@ def main(argv=None) -> int:
     dp_surface = {"mnist": phase_mnist(torch, log, card),
                   "lm_zero3": phase_lm_zero3(torch, K, log, train),
                   "card": card}
+    imagenet = phase_imagenet(torch, log, card)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -772,6 +1147,7 @@ def main(argv=None) -> int:
                                      "peak_mem_gib", "steps")}
     print(json.dumps({"train": summary}), flush=True)
     print(json.dumps({"dp_surface": dp_surface}), flush=True)
+    print(json.dumps({"imagenet": imagenet}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

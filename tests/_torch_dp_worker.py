@@ -1,7 +1,8 @@
 """Gloo worker processes for the data-parallel surface tests of
 ``chainermn_tpu_torch`` (ZeRO, the quantized and overlapped gradient
 wire, every communicator, the object plane and ``split``, the evaluator,
-the iterators, the checkpointer, the except hook and the MNIST example).
+the iterators, the checkpointer, the except hook, the MNIST example and
+``make_train_step_with_state`` on a small ResNet).
 
 Imports only torch, numpy and the port, so a spawned child never loads
 JAX.  Each ``run`` joins a ``file://`` rendezvous, runs a batch of checks
@@ -404,6 +405,111 @@ def _checkpoint(rank, size, path):
     return out
 
 
+# -- make_train_step_with_state ------------------------------------------
+
+# Each variant runs STATE_STEPS fp32 steps of a small Bottleneck ResNet on
+# one global batch, SGD (or LARS) with momentum 0.9 under a 2-update
+# linear warm-up to lr 0.1.
+STATE_VARIANTS = {
+    "stage0": {}, "overlap_off": {"overlap": False},
+    "double_buffering": {"double_buffering": True},
+    "zero1": {"stage": 1}, "zero3": {"stage": 3},
+    "lars_zero1": {"stage": 1, "optimizer": "lars"},
+}
+STATE_NET = dict(stage_sizes=[1, 1], num_filters=4, num_classes=10)
+STATE_STEPS, STATE_BATCH, STATE_SIZE = 4, 16, 16
+STATE_LR, STATE_WARMUP = 0.1, 2
+
+
+def state_model(device="cpu", seed=0):
+    from chainermn_tpu_torch.models.resnet import BottleneckBlock, ResNet
+
+    return ResNet(block_cls=BottleneckBlock, dtype=torch.float32,
+                  device=device, seed=seed, **STATE_NET)
+
+
+def flax_order(model):
+    """``model``'s parameters in the order of the reference's flat ZeRO
+    buffer (jax's sorted tree leaves, under flax's leaf names), so that
+    each rank's shard holds the same elements as the reference's and
+    LARS's per-shard trust ratio is taken over the same values."""
+    def key(item):
+        *path, leaf = item[0].split(".")
+        if leaf == "weight":
+            leaf = "kernel" if item[1].dim() > 1 else "scale"
+        return (*path, leaf)
+
+    return [p for _, p in sorted(model.named_parameters(), key=key)]
+
+
+def state_batch():
+    rng = np.random.RandomState(0)
+    x = rng.randn(STATE_BATCH, STATE_SIZE, STATE_SIZE, 3).astype(np.float32)
+    return x, rng.randint(0, 10, STATE_BATCH).astype(np.int32)
+
+
+def state_run(variant, comm):
+    """The variant's steps from ``state_model()``'s weights: the losses and
+    the final ``state_dict`` (parameters and BatchNorm buffers) as lists."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.optim import LARS, linear_schedule
+
+    cfg = {"stage": 0, "overlap": None, "double_buffering": False,
+           "optimizer": "sgd", **STATE_VARIANTS[variant]}
+    model = state_model(comm.device)
+    params = flax_order(model)
+    inner = (LARS(params, momentum=0.9, weight_decay=1e-4)
+             if cfg["optimizer"] == "lars"
+             else torch.optim.SGD(params, lr=0.0, momentum=0.9))
+    mno = create_multi_node_optimizer(
+        inner, comm, double_buffering=cfg["double_buffering"],
+        zero_stage=cfg["stage"],
+        lr_schedule=linear_schedule(0.0, STATE_LR, STATE_WARMUP))
+    mno.init()
+    step = mno.make_train_step_with_state(
+        lambda b: F.cross_entropy(model(b[0]), b[1].long()), model,
+        overlap=cfg["overlap"])
+    batch = tuple(torch.from_numpy(a).to(comm.device) for a in state_batch())
+    losses = [float(step(batch)) for _ in range(STATE_STEPS)]
+    mno.materialize()
+    return {"losses": losses, "updates": mno.update_count,
+            "state": {k: v.detach().cpu().numpy().ravel().tolist()
+                      for k, v in model.state_dict().items()}}
+
+
+def state_local_mean_err(comm):
+    """After one with-state step, the largest distance between a rank's
+    BatchNorm buffers and the mean over the ranks of the buffers each
+    rank's own train-mode forward on its slice would have left."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch import create_multi_node_optimizer
+
+    x, y = (torch.from_numpy(a).to(comm.device) for a in state_batch())
+    per = STATE_BATCH // comm.size
+    local = state_model(comm.device)
+    with torch.no_grad():
+        local(x[comm.rank * per:(comm.rank + 1) * per], train=True)
+    flat = torch.cat([b.reshape(-1) for b in local.buffers()])
+    want = comm.allgather(flat[None]).mean(0)
+    model = state_model(comm.device)
+    mno = create_multi_node_optimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), comm)
+    mno.init()
+    mno.make_train_step_with_state(
+        lambda b: F.cross_entropy(model(b[0]), b[1].long()), model)((x, y))
+    got = torch.cat([b.reshape(-1) for b in model.buffers()])
+    return float((got - want).abs().max())
+
+
+def _state(rank, size, variants):
+    torch.set_num_threads(1)        # one core a rank: no oversubscription
+    comm = _comm("xla_ici")
+    return {v: state_run(v, comm) for v in variants}
+
+
 MNIST_SMALL = ["--device", "cpu", "--communicator", "naive", "--unit", "32",
                "--batchsize", "64", "--train-size", "256", "--val-size", "64",
                "--epochs", "3"]
@@ -441,6 +547,7 @@ def _mnist(rank, size, path):
 
 
 NCCL_QUANT_NAMES = ("xla_ici", "hierarchical", "two_dimensional")
+NCCL_STATE_VARIANTS = ("stage0", "zero3", "double_buffering")
 NCCL_ZERO_VARIANTS = ("plain", "n_accum2", "double_buffering")
 
 
@@ -508,6 +615,8 @@ def _nccl(rank, size, path):
     dist.barrier()           # the relaunch starts after every save landed
     runs["resumed"] = example(*ck)
     out["mnist"] = runs
+    out["state"] = {v: state_run(v, comm) for v in NCCL_STATE_VARIANTS}
+    out["state_local_mean_err"] = state_local_mean_err(comm)
     return out
 
 
@@ -531,6 +640,8 @@ def run(kind: str, rank: int, size: int, init_file: str, out_dir: str,
             res = _mnist(rank, size, args["path"])
         elif kind == "nccl":
             res = _nccl(rank, size, args["path"])
+        elif kind == "state":
+            res = _state(rank, size, args["variants"])
         else:
             raise ValueError(kind)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
