@@ -302,7 +302,7 @@ class CommunicatorBase:
             return x.clone()
         xt = x.movedim(scatter_dimension, 0)
         chunks = self._to_group_order(list(xt.chunk(n)))
-        send = torch.cat([c.reshape(-1) for c in chunks])
+        send = torch.cat(chunks)        # (n * k, ...): the group's order
         out = xt.new_empty((xt.shape[0] // n,) + xt.shape[1:])
         dist.reduce_scatter_tensor(out, send, group=self.group)
         return out.movedim(0, scatter_dimension)
@@ -629,7 +629,7 @@ class CommunicatorBase:
         Splitting the world creates every color's groups on every rank in
         the same order (``new_group`` is collective over the world).
         Splitting a split communicator creates each group among its
-        members only, which needs a gloo backend."""
+        members only (``use_local_synchronization``), on NCCL as on gloo."""
         trips = self.allgather_obj(
             (None if color is None else int(color), int(key), self.rank))
         colors = sorted({c for c, _, _ in trips if c is not None},
@@ -646,12 +646,9 @@ class CommunicatorBase:
                 obj = (None if backend == "gloo" else
                        dist.new_group(ranks, backend="gloo"))
             elif me in members:
-                if backend != "gloo":
-                    raise NotImplementedError(
-                        "splitting a split communicator needs the gloo "
-                        "backend; split the world communicator instead")
                 grp = _local_group(ranks)
-                obj = None
+                obj = (None if backend == "gloo" else
+                       _local_group(ranks, backend="gloo"))
             else:
                 continue
             if c == color:
@@ -683,12 +680,14 @@ class CommunicatorBase:
 _LOCAL_GROUPS: dict = {}
 
 
-def _local_group(ranks):
+def _local_group(ranks, backend=None):
     """A group created by its members alone (``use_local_synchronization``),
-    one per member set: torch names such groups by their ranks, so a second
-    group over the same ranks must be the first one again."""
-    key = tuple(ranks)
+    one per member set and backend (``None`` = the world's): torch names
+    such a group from its ranks and the count of groups this process has
+    made, which only the members agree on, so a second split over the same
+    ranks must reuse the first one's group."""
+    key = (tuple(ranks), backend)
     if key not in _LOCAL_GROUPS:
-        _LOCAL_GROUPS[key] = dist.new_group(list(ranks),
+        _LOCAL_GROUPS[key] = dist.new_group(list(ranks), backend=backend,
                                             use_local_synchronization=True)
     return _LOCAL_GROUPS[key]

@@ -18,6 +18,18 @@ flax path (shape)                                      port key (shape)
 ``final_norm/{scale,bias}``                            ``final_norm.{weight,bias}``
 =====================================================  ==========================================
 
+The reference's encoder-decoder ``Transformer`` maps onto the port's by
+:func:`encdec_flax_to_state_dict`: ``enc_i`` as the encoder layers above
+onto ``enc.i``, ``dec_i/{self_attn,cross_attn}`` onto
+``dec.i.{self_attn,cross_attn}`` with the same reshapes,
+``dec_i/LayerNorm_{0,1,2}`` onto ``dec.i.norm_{0,1,2}``, and
+``enc_norm``/``dec_norm`` by name.  The seq2seq models map by
+:func:`seq2seq_flax_to_state_dict`: each flax ``GRUCell_i`` onto
+``grus.i``, its ``ir/iz/in`` kernels ``(in, H)`` transposed and stacked
+into ``weight_ih`` ``(3H, in)``, their biases into ``bias_ih``, the
+bias-free ``hr/hz`` and ``hn`` kernels into ``weight_hh`` and ``hn``'s
+bias into ``bias_hn``.
+
 The reference's MNIST ``MLP`` maps onto :class:`models.mlp.MLP` by
 :func:`mlp_flax_to_state_dict` (``Dense_i/kernel`` transposed into
 ``l{i+1}.weight``).
@@ -54,12 +66,71 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True, order="C"))
 
 
-def _np(t: torch.Tensor) -> np.ndarray:
-    return np.ascontiguousarray(t.detach().cpu().numpy())
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().numpy()
+    return np.ascontiguousarray(t)
 
 
-def _n_layers(keys) -> int:
-    return len({k.split(".")[1] for k in keys if k.startswith("layers.")})
+def _n_layers(keys, stack: str) -> int:
+    return len({k.split(".")[1] for k in keys if k.startswith(stack + ".")})
+
+
+def _mha_to_sd(sd, pre, mha):
+    for name in _QKV:
+        kern = np.asarray(mha[name]["kernel"])
+        sd[f"{pre}.{name}.weight"] = _t(kern.reshape(kern.shape[0], -1).T)
+    out = np.asarray(mha["out"]["kernel"])
+    sd[f"{pre}.out.weight"] = _t(out.reshape(-1, out.shape[-1]).T)
+
+
+def _mha_to_flax(sd, pre, n_heads):
+    out_w = sd[f"{pre}.out.weight"]                    # (D, h*dh)
+    D = out_w.shape[0]
+    d_head = out_w.shape[1] // n_heads
+    mha = {}
+    for name in _QKV:
+        w = sd[f"{pre}.{name}.weight"]                 # (h*dh, D)
+        mha[name] = {"kernel": np.ascontiguousarray(
+            w.T.reshape(D, w.shape[0] // d_head, d_head))}
+    mha["out"] = {"kernel": np.ascontiguousarray(
+        out_w.T.reshape(n_heads, d_head, D))}
+    return mha
+
+
+def _ff_to_sd(sd, pre, ff):
+    for name in ("wi", "wo"):
+        sd[f"{pre}.{name}.weight"] = _t(np.asarray(ff[name]["kernel"]).T)
+
+
+def _ff_to_flax(sd, pre):
+    return {name: {"kernel": np.ascontiguousarray(
+        sd[f"{pre}.{name}.weight"].T)} for name in ("wi", "wo")}
+
+
+def _ln_to_sd(sd, pre, ln):
+    sd[f"{pre}.weight"] = _t(ln["scale"])
+    sd[f"{pre}.bias"] = _t(ln["bias"])
+
+
+def _ln_to_flax(sd, pre):
+    return {"scale": sd[f"{pre}.weight"], "bias": sd[f"{pre}.bias"]}
+
+
+def _encoder_layer_to_sd(sd, pre, layer):
+    _mha_to_sd(sd, f"{pre}.attention", layer["MultiHeadAttention_0"])
+    _ff_to_sd(sd, f"{pre}.feed_forward", layer["FeedForward_0"])
+    for flax_name, ours in _NORMS:
+        _ln_to_sd(sd, f"{pre}.{ours}", layer[flax_name])
+
+
+def _encoder_layer_to_flax(sd, pre, n_heads):
+    layer = {"MultiHeadAttention_0": _mha_to_flax(sd, f"{pre}.attention",
+                                                  n_heads),
+             "FeedForward_0": _ff_to_flax(sd, f"{pre}.feed_forward")}
+    for flax_name, ours in _NORMS:
+        layer[flax_name] = _ln_to_flax(sd, f"{pre}.{ours}")
+    return layer
 
 
 def flax_to_state_dict(params) -> dict:
@@ -68,28 +139,9 @@ def flax_to_state_dict(params) -> dict:
     sd = {"embed.weight": _t(p["embed"]["embedding"])}
     i = 0
     while f"layer_{i}" in p:
-        layer = p[f"layer_{i}"]
-        pre = f"layers.{i}"
-        mha = layer["MultiHeadAttention_0"]
-        for name in _QKV:
-            kern = np.asarray(mha[name]["kernel"])
-            sd[f"{pre}.attention.{name}.weight"] = _t(
-                kern.reshape(kern.shape[0], -1).T
-            )
-        out = np.asarray(mha["out"]["kernel"])
-        sd[f"{pre}.attention.out.weight"] = _t(
-            out.reshape(-1, out.shape[-1]).T
-        )
-        for name in ("wi", "wo"):
-            sd[f"{pre}.feed_forward.{name}.weight"] = _t(
-                np.asarray(layer["FeedForward_0"][name]["kernel"]).T
-            )
-        for flax_name, ours in _NORMS:
-            sd[f"{pre}.{ours}.weight"] = _t(layer[flax_name]["scale"])
-            sd[f"{pre}.{ours}.bias"] = _t(layer[flax_name]["bias"])
+        _encoder_layer_to_sd(sd, f"layers.{i}", p[f"layer_{i}"])
         i += 1
-    sd["final_norm.weight"] = _t(p["final_norm"]["scale"])
-    sd["final_norm.bias"] = _t(p["final_norm"]["bias"])
+    _ln_to_sd(sd, "final_norm", p["final_norm"])
     return sd
 
 
@@ -98,33 +150,131 @@ def state_dict_to_flax(state_dict, n_heads: int) -> dict:
     outer ``"params"`` key).  ``n_heads`` is the query head count; the kv
     head count follows from the key projection's width."""
     sd = {k: _np(v) for k, v in state_dict.items()}
-    D = sd["embed.weight"].shape[1]
     tree = {"embed": {"embedding": sd["embed.weight"]}}
-    for i in range(_n_layers(sd)):
-        pre = f"layers.{i}"
-        out_w = sd[f"{pre}.attention.out.weight"]         # (D, h*dh)
-        d_head = out_w.shape[1] // n_heads
-        mha = {}
-        for name in _QKV:
-            w = sd[f"{pre}.attention.{name}.weight"]       # (h*dh, D)
-            mha[name] = {"kernel": np.ascontiguousarray(
-                w.T.reshape(D, w.shape[0] // d_head, d_head))}
-        mha["out"] = {"kernel": np.ascontiguousarray(
-            out_w.T.reshape(n_heads, d_head, D))}
-        layer = {
-            "MultiHeadAttention_0": mha,
-            "FeedForward_0": {
-                name: {"kernel": np.ascontiguousarray(
-                    sd[f"{pre}.feed_forward.{name}.weight"].T)}
-                for name in ("wi", "wo")
-            },
-        }
-        for flax_name, ours in _NORMS:
-            layer[flax_name] = {"scale": sd[f"{pre}.{ours}.weight"],
-                                "bias": sd[f"{pre}.{ours}.bias"]}
-        tree[f"layer_{i}"] = layer
-    tree["final_norm"] = {"scale": sd["final_norm.weight"],
-                          "bias": sd["final_norm.bias"]}
+    for i in range(_n_layers(sd, "layers")):
+        tree[f"layer_{i}"] = _encoder_layer_to_flax(sd, f"layers.{i}",
+                                                    n_heads)
+    tree["final_norm"] = _ln_to_flax(sd, "final_norm")
+    return tree
+
+
+_DEC_NORMS = (("LayerNorm_0", "norm_0"), ("LayerNorm_1", "norm_1"),
+              ("LayerNorm_2", "norm_2"))
+
+
+def encdec_flax_to_state_dict(params) -> dict:
+    """The reference's ``Transformer`` (encoder-decoder) tree -> the
+    port's ``Transformer`` ``state_dict``: ``enc_i`` onto ``enc.i`` as an
+    encoder layer, ``dec_i/{self_attn,cross_attn,FeedForward_0,
+    LayerNorm_{0,1,2}}`` onto ``dec.i.{self_attn,cross_attn,feed_forward,
+    norm_{0,1,2}}``, ``enc_norm``/``dec_norm`` by name."""
+    p = params.get("params", params)
+    sd = {"embed.weight": _t(p["embed"]["embedding"])}
+    i = 0
+    while f"enc_{i}" in p:
+        _encoder_layer_to_sd(sd, f"enc.{i}", p[f"enc_{i}"])
+        i += 1
+    i = 0
+    while f"dec_{i}" in p:
+        layer, pre = p[f"dec_{i}"], f"dec.{i}"
+        for name in ("self_attn", "cross_attn"):
+            _mha_to_sd(sd, f"{pre}.{name}", layer[name])
+        _ff_to_sd(sd, f"{pre}.feed_forward", layer["FeedForward_0"])
+        for flax_name, ours in _DEC_NORMS:
+            _ln_to_sd(sd, f"{pre}.{ours}", layer[flax_name])
+        i += 1
+    _ln_to_sd(sd, "enc_norm", p["enc_norm"])
+    _ln_to_sd(sd, "dec_norm", p["dec_norm"])
+    return sd
+
+
+def encdec_state_dict_to_flax(state_dict, n_heads: int) -> dict:
+    """The inverse of :func:`encdec_flax_to_state_dict` (no ``"params"``
+    key)."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    tree = {"embed": {"embedding": sd["embed.weight"]}}
+    for i in range(_n_layers(sd, "enc")):
+        tree[f"enc_{i}"] = _encoder_layer_to_flax(sd, f"enc.{i}", n_heads)
+    for i in range(_n_layers(sd, "dec")):
+        pre = f"dec.{i}"
+        layer = {name: _mha_to_flax(sd, f"{pre}.{name}", n_heads)
+                 for name in ("self_attn", "cross_attn")}
+        layer["FeedForward_0"] = _ff_to_flax(sd, f"{pre}.feed_forward")
+        for flax_name, ours in _DEC_NORMS:
+            layer[flax_name] = _ln_to_flax(sd, f"{pre}.{ours}")
+        tree[f"dec_{i}"] = layer
+    tree["enc_norm"] = _ln_to_flax(sd, "enc_norm")
+    tree["dec_norm"] = _ln_to_flax(sd, "dec_norm")
+    return tree
+
+
+_GATES = ("r", "z", "n")
+
+
+def _gru_to_sd(sd, pre, cell):
+    sd[f"{pre}.weight_ih"] = _t(np.concatenate(
+        [np.asarray(cell[f"i{g}"]["kernel"]).T for g in _GATES]))
+    sd[f"{pre}.bias_ih"] = _t(np.concatenate(
+        [np.asarray(cell[f"i{g}"]["bias"]) for g in _GATES]))
+    sd[f"{pre}.weight_hh"] = _t(np.concatenate(
+        [np.asarray(cell[f"h{g}"]["kernel"]).T for g in _GATES]))
+    sd[f"{pre}.bias_hn"] = _t(cell["hn"]["bias"])
+
+
+def _gru_to_flax(sd, pre):
+    w_ih = np.split(sd[f"{pre}.weight_ih"], 3)
+    b_ih = np.split(sd[f"{pre}.bias_ih"], 3)
+    w_hh = np.split(sd[f"{pre}.weight_hh"], 3)
+    cell = {}
+    for g, w, b, h in zip(_GATES, w_ih, b_ih, w_hh):
+        cell[f"i{g}"] = {"kernel": np.ascontiguousarray(w.T),
+                         "bias": np.ascontiguousarray(b)}
+        cell[f"h{g}"] = {"kernel": np.ascontiguousarray(h.T)}
+    cell["hn"]["bias"] = sd[f"{pre}.bias_hn"]
+    return cell
+
+
+def seq2seq_flax_to_state_dict(params, prefix: str = "") -> dict:
+    """A reference ``Encoder``, ``Decoder`` or ``Seq2seq`` tree -> the
+    port module's ``state_dict``: ``embed/embedding`` onto
+    ``embed.weight``; each ``GRUCell_i`` onto ``grus.i``, its ``ir``,
+    ``iz``, ``in`` kernels (in, H) transposed and stacked into
+    ``weight_ih`` (3H, in) with their biases into ``bias_ih``, ``hr``,
+    ``hz``, ``hn`` into ``weight_hh`` and ``hn``'s bias into
+    ``bias_hn``; ``proj`` as a dense layer.  A ``Seq2seq`` tree's
+    ``encoder``/``decoder`` subtrees map under those prefixes."""
+    p = params.get("params", params)
+    sd = {}
+    if "encoder" in p:
+        for part in ("encoder", "decoder"):
+            sd.update(seq2seq_flax_to_state_dict(p[part], f"{prefix}{part}."))
+        return sd
+    sd[f"{prefix}embed.weight"] = _t(p["embed"]["embedding"])
+    i = 0
+    while f"GRUCell_{i}" in p:
+        _gru_to_sd(sd, f"{prefix}grus.{i}", p[f"GRUCell_{i}"])
+        i += 1
+    if "proj" in p:
+        sd[f"{prefix}proj.weight"] = _t(np.asarray(p["proj"]["kernel"]).T)
+        sd[f"{prefix}proj.bias"] = _t(p["proj"]["bias"])
+    return sd
+
+
+def seq2seq_state_dict_to_flax(state_dict) -> dict:
+    """The inverse of :func:`seq2seq_flax_to_state_dict` (no ``"params"``
+    key)."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    parts = {k.split(".")[0] for k in sd}
+    if parts == {"encoder", "decoder"}:
+        return {part: seq2seq_state_dict_to_flax(
+            {k[len(part) + 1:]: v for k, v in sd.items()
+             if k.startswith(part + ".")}) for part in ("encoder", "decoder")}
+    tree = {"embed": {"embedding": sd["embed.weight"]}}
+    for i in range(_n_layers(sd, "grus")):
+        tree[f"GRUCell_{i}"] = _gru_to_flax(sd, f"grus.{i}")
+    if "proj.weight" in sd:
+        tree["proj"] = {"kernel": np.ascontiguousarray(sd["proj.weight"].T),
+                        "bias": sd["proj.bias"]}
     return tree
 
 
@@ -201,3 +351,24 @@ def convnet_state_dict_to_flax(state_dict) -> dict:
             tree = tree.setdefault(name, {})
         tree[leaf] = a
     return out
+
+
+def flax_flat_layout(model):
+    """A convnet's parameters in the order of the reference's flat ZeRO
+    buffer (jax's sorted tree leaves, under flax's leaf names) and, for
+    each, the permutation that takes it into flax's layout (conv kernels
+    OIHW -> HWIO, dense kernels ``(out, in)`` -> ``(in, out)``, ``None``
+    for the rest): the ``params`` to build the wrapped optimizer over and
+    the multi-node optimizer's ``flat_layout``, so that each ZeRO shard
+    holds the reference shard's elements in its order."""
+    def key(item):
+        name, p = item
+        *path, leaf = name.split(".")
+        if leaf == "weight":
+            leaf = "kernel" if p.dim() > 1 else "scale"
+        return (*path, leaf)
+
+    named = sorted(model.named_parameters(), key=key)
+    return ([p for _, p in named],
+            [_TO_FLAX.get(p.dim()) if name.endswith("weight") else None
+             for name, p in named])

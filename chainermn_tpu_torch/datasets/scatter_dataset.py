@@ -92,3 +92,9 @@ class _Empty:
 
     def __getitem__(self, i):
         return ()
+
+
+def get_n_iterations_for_one_epoch(dataset, local_batch_size: int) -> int:
+    """Iterations per epoch at a per-rank batch size: ⌈len / local batch⌉
+    (the helper the reference keeps for its examples)."""
+    return -(-len(dataset) // local_batch_size)

@@ -99,7 +99,14 @@ class Conv(nn.Module):
             x = F.pad(x, asym)
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.strides, sym)
+        # The kernel's cast is its one copy a step, made in the input's
+        # layout: a ZeRO-3 parameter is a permuted view of its flat HWIO
+        # slice, which the cast also lays out as cuDNN takes it.
+        fmt = (torch.channels_last
+               if x.is_contiguous(memory_format=torch.channels_last)
+               else torch.preserve_format)
+        return F.conv2d(x.to(dt), self.weight.to(dt, memory_format=fmt),
+                        bias, self.strides, sym)
 
 
 def max_pool(x, window=3, strides=2, padding: str = "VALID"):

@@ -1,8 +1,9 @@
-"""Decoder-only transformer LM — the dense training path.
+"""Transformer encoder-decoder and decoder-only LM — the dense training
+paths.
 
 Port of ``chainermn_tpu/models/transformer.py`` (``MultiHeadAttention``,
-``FeedForward``, ``EncoderLayer``, ``TransformerLM``).  The numerics copy
-flax's:
+``FeedForward``, ``EncoderLayer``, ``DecoderLayer``, ``Transformer``,
+``TransformerLM``).  The numerics copy flax's:
 
 * ``LayerNorm`` epsilon is 1e-6, statistics in fp32, output in the
   compute dtype;
@@ -10,7 +11,11 @@ flax's:
 * a layer with ``dtype=torch.bfloat16`` keeps fp32 parameters and casts
   both its input and its parameters to bf16 for the product;
 * positions are added in the compute dtype;
-* the dense (no ``attention_fn``) mask fills with ``finfo(float32).min``.
+* the dense (no ``attention_fn``) mask fills with ``finfo(float32).min``;
+* the tied heads (``embed.attend``) run in the compute dtype: flax's
+  ``promote_dtype`` casts the fp32 query to the embedding's dtype, so with
+  the default bf16 ``Transformer`` returns bf16 logits, as the reference
+  computes them (its docstring says fp32).
 
 Parameter layout: every projection is an ``nn.Linear`` (weight
 ``(out, in)``); :mod:`chainermn_tpu_torch.convert` maps flax's
@@ -20,7 +25,7 @@ projection ~ N(0, 1/fan_in) (flax draws the projections from a truncated
 normal; parity tests load converted weights instead).
 
 The decode (KV cache), paged and sequence-parallel modes of the reference
-are later slices (ROADMAP A8) and raise ``NotImplementedError``.
+are later slices (ROADMAP A.6) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 
-_LATER = "is a later slice of the port (ROADMAP A8)"
+_LATER = "is a later slice of the port (ROADMAP A.6)"
 
 
 def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
@@ -173,6 +178,86 @@ class EncoderLayer(nn.Module):
         h = self.norm_0(x)
         x = x + self.attention(h, h, mask)
         return x + self.feed_forward(self.norm_1(x))
+
+
+class DecoderLayer(nn.Module):
+    """Pre-norm block: y + self-MHA(LN(y)), y + cross-MHA(LN(y), enc), then
+    y + FF(LN(y)).  Flax names its parts ``LayerNorm_{0,1,2}``,
+    ``self_attn``, ``cross_attn`` and ``FeedForward_0``."""
+
+    def __init__(self, d_model: int, n_heads: int, d_ff: int,
+                 dtype=torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.norm_0 = LayerNorm(d_model, dtype)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, dtype,
+                                            generator=generator)
+        self.norm_1 = LayerNorm(d_model, dtype)
+        self.cross_attn = MultiHeadAttention(d_model, n_heads, dtype,
+                                             generator=generator)
+        self.norm_2 = LayerNorm(d_model, dtype)
+        self.feed_forward = FeedForward(d_model, d_ff, dtype, generator)
+
+    def forward(self, y, enc, self_mask=None, cross_mask=None):
+        h = self.norm_0(y)
+        y = y + self.self_attn(h, h, self_mask)
+        y = y + self.cross_attn(self.norm_1(y), enc, cross_mask)
+        return y + self.feed_forward(self.norm_2(y))
+
+
+class Transformer(nn.Module):
+    """Encoder-decoder (WMT shape, BASELINE config #4) with one shared
+    ``embed``: it embeds both token streams and is the tied output head.
+
+    ``forward(src, tgt)`` takes (B, S) source and (B, T) target tokens (the
+    target shifted right by the caller), with 0 as padding: the encoder
+    attends where ``src != 0``, the decoder causally where ``tgt != 0``,
+    and the cross-attention where ``src != 0``.  Returns (B, T, vocab)
+    logits in the compute dtype (see the module docstring).  ``device``
+    defaults to ``"cuda"`` as :class:`TransformerLM`'s does."""
+
+    def __init__(self, vocab: int, d_model: int = 512, n_heads: int = 8,
+                 d_ff: int = 2048, n_enc_layers: int = 6,
+                 n_dec_layers: int = 6, max_len: int = 512,
+                 dtype=torch.bfloat16, device="cuda", seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator().manual_seed(seed)
+        self.vocab, self.d_model, self.dtype = vocab, d_model, dtype
+        self.embed = nn.Embedding(vocab, d_model)
+        with torch.no_grad():
+            self.embed.weight.normal_(0.0, d_model ** -0.5, generator=gen)
+        self.enc = nn.ModuleList(
+            EncoderLayer(d_model, n_heads, d_ff, dtype, generator=gen)
+            for _ in range(n_enc_layers))
+        self.enc_norm = LayerNorm(d_model, dtype)
+        self.dec = nn.ModuleList(
+            DecoderLayer(d_model, n_heads, d_ff, dtype, generator=gen)
+            for _ in range(n_dec_layers))
+        self.dec_norm = LayerNorm(d_model, dtype)
+        self.register_buffer(
+            "pe", torch.from_numpy(sinusoidal_positions(max_len, d_model)),
+            persistent=False,
+        )
+        self.to(dev)
+
+    def _embed(self, tokens):
+        x = F.embedding(tokens, self.embed.weight).to(self.dtype)
+        return x + self.pe[:tokens.shape[1]].to(self.dtype)
+
+    def forward(self, src, tgt):
+        src_mask = (src != 0)[:, None, None, :]
+        x = self._embed(src)
+        for layer in self.enc:
+            x = layer(x, src_mask)
+        x = self.enc_norm(x)
+        self_mask = (causal_mask(tgt.shape[1], tgt.device)
+                     & (tgt != 0)[:, None, None, :])
+        y = self._embed(tgt)
+        for layer in self.dec:
+            y = layer(y, x, self_mask, src_mask)
+        y = self.dec_norm(y)
+        return _dense(y.float(), self.embed.weight, self.dtype)
 
 
 class TransformerLM(nn.Module):

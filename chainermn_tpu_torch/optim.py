@@ -1,10 +1,15 @@
-"""The optax pieces of the ImageNet example, as ``torch.optim`` code.
+"""The optax pieces of the ImageNet and WMT examples, as ``torch.optim``
+code.
 
 * :func:`linear_schedule` is ``optax.linear_schedule``: a function of the
   update count, which starts at 0, so the first update takes
   ``init_value`` (0 in the example's warm-up).  The multi-node optimizer
   takes it as ``lr_schedule`` and counts updates: under double buffering
   the reduce-only first step is not one.
+* :func:`warmup_cosine_decay_schedule` is optax's: the same count, so the
+  WMT example's first AdamW update runs at learning rate 0, which still
+  moves Adam's moments (and its bias-correction count), under optax and
+  under ``torch.optim.AdamW`` alike.
 * ``optax.sgd(lr, momentum=m)`` is ``torch.optim.SGD(params, lr,
   momentum=m)`` (``dampening=0``, no Nesterov, no weight decay): both add
   the gradient to the decayed trace first and scale the trace by the
@@ -20,6 +25,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -36,6 +42,44 @@ def linear_schedule(init_value: float, end_value: float,
     def schedule(count: int) -> float:
         frac = 1.0 - min(max(count, 0), transition_steps) / transition_steps
         return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0,
+                          exponent: float = 1.0) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule``: ``init_value`` times
+    ``(1 - alpha) * (0.5 * (1 + cos(pi * t / T))) ** exponent + alpha``
+    with ``t = min(count, T)``."""
+    if not decay_steps > 0:
+        raise ValueError("cosine_decay_schedule requires positive "
+                         f"decay_steps, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        t = min(float(count), float(decay_steps))
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay_steps))
+        return init_value * ((1.0 - alpha) * cosine ** exponent + alpha)
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0,
+                                 exponent: float = 1.0
+                                 ) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule``: linear from ``init_value``
+    to ``peak_value`` over ``warmup_steps`` updates, then a cosine decay
+    to ``end_value`` at ``decay_steps`` (which counts the warm-up)."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    warmup = linear_schedule(init_value, peak_value, warmup_steps)
+    decay = cosine_decay_schedule(peak_value, decay_steps - warmup_steps,
+                                  alpha, exponent)
+
+    def schedule(count: int) -> float:
+        return (warmup(count) if count < warmup_steps
+                else decay(count - warmup_steps))
 
     return schedule
 

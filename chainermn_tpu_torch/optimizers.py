@@ -19,7 +19,11 @@ ZeRO (the reference's ``zero_stage``; its contract is
 
 * stage 1: the optimizer state lives as a 1/n shard.  The parameters are
   packed into one flat fp32 buffer padded to a multiple of the world size
-  n; gradients arrive by reduce-scatter (the mean of this rank's shard),
+  n, each in the optimizer's order and, with ``flat_layout``, permuted
+  into the layout it names (:func:`convert.flax_flat_layout` gives the
+  reference's leaf order and flax's layouts, so that every shard holds
+  the reference's elements and LARS's per-shard trust ratio sees the
+  same values); gradients arrive by reduce-scatter (the mean of this rank's shard),
   the wrapped optimizer — rebuilt from its class and its one group's
   hyperparameters over one flat shard parameter — updates the shard, and
   the updated shards are all-gathered into the parameters;
@@ -29,7 +33,9 @@ ZeRO (the reference's ``zero_stage``; its contract is
   between steps.  Each step all-gathers them into one flat buffer, the
   module's parameters become views into it (casts for non-fp32
   parameters), gradients are reduce-scattered per microbatch, the shard
-  is updated, and the parameters' storage is freed.  :meth:`materialize`
+  is updated, and the parameters' storage is freed (a parameter held in
+  another layout is a ``permute`` of its flat slice, still a view).
+  :meth:`materialize`
   fills the module again (for evaluation or export).
 
 Every stage composes with ``double_buffering`` (under ZeRO the stale
@@ -107,12 +113,16 @@ class MultiNodeOptimizer:
     gradients (the first step only reduces and leaves the parameters
     unchanged) — the reference's one-step-stale semantics.
     ``lr_schedule``: the learning rate as a function of the update count
-    (an optax schedule's contract)."""
+    (an optax schedule's contract).  ``flat_layout`` (ZeRO): one entry
+    per parameter, in the wrapped optimizer's order, ``None`` or the
+    permutation of its dimensions that its segment of the flat buffer
+    holds."""
 
     def __init__(self, actual_optimizer: torch.optim.Optimizer,
                  communicator: CommunicatorBase,
                  double_buffering: bool = False, zero_stage: int = 0,
-                 lr_schedule: Callable[[int], float] | None = None):
+                 lr_schedule: Callable[[int], float] | None = None,
+                 flat_layout=None):
         if zero_stage not in (0, 1, 2, 3):
             raise ValueError("zero_stage must be 0, 1, 2 or 3")
         self.actual_optimizer = actual_optimizer
@@ -131,7 +141,22 @@ class MultiNodeOptimizer:
         self._target = None     # setup(): the module
         self._step_fn = None
         if zero_stage:
-            self._shapes = [p.shape for p in self._params]
+            perms = ([None] * len(self._params) if flat_layout is None
+                     else [None if q is None else tuple(q)
+                           for q in flat_layout])
+            if len(perms) != len(self._params):
+                raise ValueError(
+                    f"flat_layout has {len(perms)} entries for "
+                    f"{len(self._params)} parameters")
+            self._perms = perms
+            # Each segment's shape in the flat buffer, and the permutation
+            # that takes it back to the parameter's own dimensions.
+            self._shapes = [p.shape if q is None else
+                            torch.Size(p.shape[d] for d in q)
+                            for p, q in zip(self._params, perms)]
+            self._unperms = [None if q is None else
+                             tuple(sorted(range(len(q)), key=q.__getitem__))
+                             for q in perms]
             self._sizes = [p.numel() for p in self._params]
             n = communicator.size
             total = sum(self._sizes)
@@ -155,6 +180,14 @@ class MultiNodeOptimizer:
             self._inner = self._rebuild_inner()
             if self.zero_stage == 3:
                 self._release_params()
+
+    def broadcast_params(self, params=None):
+        """Replace every rank's values of ``params`` (a module, a sequence
+        or a mapping of tensors; default: the wrapped optimizer's
+        parameters) with rank 0's, in place, and return them (the
+        reference's on-demand replication from process 0).  Collective."""
+        return self.communicator.broadcast_data(
+            self._params if params is None else params)
 
     def _schedule_lr(self):
         """Before an update: the scheduled learning rate into every group
@@ -185,8 +218,10 @@ class MultiNodeOptimizer:
         return self._shard_size * self.communicator.size - sum(self._sizes)
 
     def _pack(self, tensors):
-        """Tensors -> one flat fp32 buffer padded to shard x world."""
-        parts = [t.reshape(-1).float() for t in tensors]
+        """Tensors (the parameters' shapes) -> one flat fp32 buffer in the
+        flat layout, padded to shard x world."""
+        parts = [(t if q is None else t.permute(q)).reshape(-1).float()
+                 for t, q in zip(tensors, self._perms)]
         pad = self._pad()
         if pad:
             parts.append(parts[0].new_zeros(pad))
@@ -211,9 +246,11 @@ class MultiNodeOptimizer:
         or copied into their own storage (stages 1 and 2)."""
         off = 0
         with torch.no_grad():
-            for p, shape, size in zip(self._params, self._shapes,
-                                      self._sizes):
+            for p, shape, size, unperm in zip(self._params, self._shapes,
+                                              self._sizes, self._unperms):
                 v = flat[off:off + size].view(shape)
+                if unperm is not None:
+                    v = v.permute(unperm)
                 off += size
                 if views:
                     p.data = v if p.dtype == torch.float32 else v.to(p.dtype)
@@ -506,11 +543,12 @@ def create_multi_node_optimizer(
         actual_optimizer: torch.optim.Optimizer,
         communicator: CommunicatorBase, double_buffering: bool = False,
         zero_stage: int = 0,
-        lr_schedule: Callable[[int], float] | None = None
-) -> MultiNodeOptimizer:
+        lr_schedule: Callable[[int], float] | None = None,
+        flat_layout=None) -> MultiNodeOptimizer:
     """Reference-parity factory (ChainerMN's ``create_multi_node_optimizer``);
     ``lr_schedule`` carries what an optax schedule carries in the
-    reference's optimizer."""
+    reference's optimizer, ``flat_layout`` the ZeRO buffer's layout."""
     return MultiNodeOptimizer(actual_optimizer, communicator,
                               double_buffering=double_buffering,
-                              zero_stage=zero_stage, lr_schedule=lr_schedule)
+                              zero_stage=zero_stage, lr_schedule=lr_schedule,
+                              flat_layout=flat_layout)

@@ -50,14 +50,27 @@ of which fails the run when wrong:
    width with SGD, with LARS, and stopped at a checkpoint and resumed
    (the loaded state's crc32 equal to the saved one's, the end within a
    stated tolerance of the uninterrupted run); (c) AlexNet, NiN and
-   GoogLeNet at 224 px with dropout on; (d) 3 steps of (a) under ZeRO-3,
-   the losses within a stated tolerance of (a)'s.  No TPU kernel is on
-   this path: it checks the port's cuDNN/ATen path end to end.
+   GoogLeNet at 224 px with dropout on; (d) (a) under ZeRO-3 with the
+   flat buffer in the module's layouts and in flax's (the reference's
+   shards), the losses within a stated tolerance of (a)'s and each median
+   step beside (a)'s.  No TPU kernel is on this path: it checks the
+   port's cuDNN/ATen path end to end;
+8. the model-parallel API and the WMT encoder-decoder over NCCL in a
+   fresh process group: (a) the WMT example's model, loss, schedule and
+   ``make_train_step`` at Transformer-base widths (d_model 512, 8 heads,
+   d_ff 2048, 6+6 layers, vocab 32768, 256-token source and target,
+   batch 96) through the two-dimensional communicator on a bf16 wire:
+   median step, tokens/s, peak memory, the step-0 loss near ln 32768 and
+   one profiled step; then the example's ``main``; (b) the seq2seq
+   example (``MultiNodeChainList``, encoder and decoder both on rank 0)
+   at unit 1024, 2 layers, vocab 32768, 50 tokens, batch 64, in both
+   parameter tiers, their losses within a stated tolerance, with the
+   accuracy and BLEU.  No TPU kernel is on this path either.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
-``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, the card's
-``name, power.limit`` line, a JSON line of per-kernel numbers, and
-``{"ok": true, "device": {...}}``.
+``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
+``{"model_parallel": ...}``, the card's ``name, power.limit`` line, a
+JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -804,19 +817,23 @@ def resnet_batch(torch, input_dtype):
     return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
 
 
-def build_resnet(torch, comm, zero_stage=0):
+def build_resnet(torch, comm, zero_stage=0, flax_layout=False):
     """bench_resnet's step through the port: ResNet-50 from seed 0, SGD lr
     0.1 momentum 0.9, ``make_train_step_with_state``; uint8 images are
-    decoded on the device (x / 127.5 - 1 in bf16)."""
+    decoded on the device (x / 127.5 - 1 in bf16).  ``flax_layout``: the
+    ZeRO buffer in the reference's leaf order and flax's layouts."""
     import torch.nn.functional as F
 
     from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.convert import flax_flat_layout
     from chainermn_tpu_torch.models import ResNet50
 
     model = ResNet50(num_classes=RESNET["classes"], device="cuda", seed=0)
+    params, layout = (flax_flat_layout(model) if flax_layout
+                      else (list(model.parameters()), None))
     opt = create_multi_node_optimizer(
-        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9), comm,
-        zero_stage=zero_stage)
+        torch.optim.SGD(params, lr=0.1, momentum=0.9), comm,
+        zero_stage=zero_stage, flat_layout=layout)
     opt.init()
 
     def loss_fn(batch):
@@ -893,27 +910,42 @@ def phase_resnet(torch, log, card, comm):
     return out, batch32
 
 
-def phase_zero3_state(torch, log, comm, batch, want):
-    """7d: 7a's model, data and seed under ZeRO-3, with state; and the
-    BatchNorm buffers' mean over the ranks at world size 1."""
-    model, opt, step = build_resnet(torch, comm, zero_stage=3)
-    losses = [step(batch).item() for _ in range(Z3_STATE_STEPS)]
-    bufs = [b for b in model.buffers() if b.is_floating_point()]
-    flat = torch.cat([b.reshape(-1) for b in bufs])
-    moved = (comm.allreduce(flat, "mean") - flat).abs().max().item()
-    want = want[:Z3_STATE_STEPS]
-    diff = max(abs(a - b) for a, b in zip(losses, want))
-    log(f"resnet50 zero3 with state: losses {losses} against 7a's {want}: "
-        f"max diff {diff:.3g} (limit {Z3_STATE_LOSS_ATOL}), bitwise "
-        f"{losses == want}; BatchNorm buffers ({flat.numel()} values) moved "
-        f"{moved} by their mean over {comm.size} rank(s)")
-    if not diff <= Z3_STATE_LOSS_ATOL:
-        raise AssertionError(f"phase 7d: ZeRO-3 losses {diff} from 7a's")
-    del model, opt, step
-    torch.cuda.empty_cache()
-    return {"losses": losses, "phase7a_losses": want, "max_diff": diff,
-            "bitwise": losses == want, "bn_mean_moved": moved,
-            "bn_values": flat.numel()}
+def phase_zero3_state(torch, log, comm, batch, want, stage0_ms):
+    """7d: 7a's model, data and seed under ZeRO-3, with state, with the
+    flat buffer in the module's layouts (conv kernels OIHW) and in flax's
+    (HWIO, the reference's shards; the conv kernels then views of a
+    permuted slice): losses against 7a's, the BatchNorm buffers' mean over
+    the ranks at world size 1, and each layout's median step against 7a's
+    stage-0 step."""
+    out = {"phase7a_step_ms": stage0_ms}
+    failed = []
+    for name, flax in (("torch_layout", False), ("flax_layout", True)):
+        model, opt, step = build_resnet(torch, comm, zero_stage=3,
+                                        flax_layout=flax)
+        med, _, losses = timed_steps(torch, step, batch, R_WARM, R_TIMED)
+        losses = losses[:Z3_STATE_STEPS]
+        bufs = [b for b in model.buffers() if b.is_floating_point()]
+        flat = torch.cat([b.reshape(-1) for b in bufs])
+        moved = (comm.allreduce(flat, "mean") - flat).abs().max().item()
+        ref = want[:Z3_STATE_STEPS]
+        diff = max(abs(a - b) for a, b in zip(losses, ref))
+        log(f"resnet50 zero3 with state, {name}: median step {med:.2f} ms "
+            f"against 7a's {stage0_ms:.2f} ms ({med / stage0_ms:.4f}x); "
+            f"losses {losses} against 7a's {ref}: max diff {diff:.3g} "
+            f"(limit {Z3_STATE_LOSS_ATOL}), bitwise {losses == ref}; "
+            f"BatchNorm buffers ({flat.numel()} values) moved {moved} by "
+            f"their mean over {comm.size} rank(s)")
+        if not diff <= Z3_STATE_LOSS_ATOL:
+            failed.append(f"{name} losses {diff} from 7a's")
+        out[name] = {"step_ms": med, "over_stage0": med / stage0_ms,
+                     "losses": losses, "max_diff": diff,
+                     "bitwise": losses == ref, "bn_mean_moved": moved,
+                     "bn_values": flat.numel()}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("phase 7d: " + "; ".join(failed))
+    return out
 
 
 def phase_convnets(torch, log, comm, batch):
@@ -1063,7 +1095,8 @@ def phase_imagenet(torch, log, card):
     out = {"card": card}
     out["resnet50"], batch = phase_resnet(torch, log, card, comm)
     out["zero3_state"] = phase_zero3_state(
-        torch, log, comm, batch, out["resnet50"]["float32"]["losses"])
+        torch, log, comm, batch, out["resnet50"]["float32"]["losses"],
+        out["resnet50"]["float32"]["step_ms"])
     out["convnets"] = phase_convnets(torch, log, comm, batch)
     del batch
     torch.cuda.empty_cache()
@@ -1072,6 +1105,191 @@ def phase_imagenet(torch, log, card):
     torch.distributed.destroy_process_group()
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 7: {out['wall_s']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the model-parallel API and the WMT encoder-decoder
+# ---------------------------------------------------------------------------
+
+# Transformer-base (Vaswani et al. 2017): d_model 512, 8 heads, d_ff 2048,
+# 6+6 layers; tensor2tensor's translate_ende_wmt32k shared vocabulary;
+# 256-token source and target; batch 96 (about 25k source tokens).
+WMT = ["--d-model", "512", "--n-heads", "8", "--d-ff", "2048", "--layers",
+       "6", "--vocab", "32768", "--seq-len", "256", "--batchsize", "96"]
+W_WARM, W_TIMED, W_BATCHES = 2, 10, 12
+W_LOSS0_WINDOW = 1.5        # step-0 loss within this of ln 32768
+# The seq2seq example at full width: Chainer's seq2seq unit, the
+# reference's 2 layers, a 32k vocabulary, 50-token sentences, 10 steps.
+S2S = ["--unit", "1024", "--vocab", "32768", "--seq-len", "50",
+       "--batchsize", "64", "--train-size", "640", "--epochs", "1"]
+# Its two parameter tiers run the same operations on the same values (the
+# sharded one on views of a flat fp32 row, Adam over that row): every
+# loss within this relative distance.
+S2S_TIER_RTOL = 1e-5
+
+
+def wmt_kind(name):
+    """Kind of a kernel of the WMT step, from its name."""
+    low = name.lower()
+    for kind, words in (
+            ("nccl", ("nccl",)),
+            ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
+            ("softmax", ("softmax",)),
+            ("layernorm", ("layer_norm", "layernorm", "gammabeta")),
+            ("optimizer (AdamW)", ("multi_tensor_apply", "foreach")),
+            ("copy (casts, layouts)", ("copy",)),
+            ("reduce", ("reduce",)),
+            ("embedding, index", ("embedding", "index", "gather",
+                                  "scatter"))):
+        if any(w in low for w in words):
+            return kind
+    return "elementwise"
+
+
+def phase_wmt(torch, log, card, ex):
+    """8a: the WMT example's model, loss, schedule and ``make_train_step``
+    at Transformer-base widths over the two-dimensional communicator
+    (bf16 wire), timed and profiled; then its ``main``."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch.datasets.toy import SyntheticSeqDataset
+
+    args = ex.parser().parse_args(WMT + ["--device", "cuda"])
+    comm = ex.make_communicator(args)
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError("expected NCCL")
+    t0 = time.perf_counter()
+    model = ex.make_model(args, comm.device)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = ex.make_optimizer(model, comm, args, args.train_size)
+    step = opt.make_train_step(ex.make_loss_fn(model))
+    data = SyntheticSeqDataset(n=args.batchsize * W_BATCHES,
+                               src_len=args.seq_len, tgt_len=args.seq_len,
+                               vocab=args.vocab)
+    batches = [(torch.from_numpy(data.src[i:i + args.batchsize]).long()
+                .cuda(), torch.from_numpy(data.tgt[i:i + args.batchsize])
+                .long().cuda())
+               for i in range(0, len(data), args.batchsize)]
+    n_tok = batches[0][0].numel() + batches[0][1].numel()
+    log(f"wmt transformer {n_params / 1e6:.1f}M params on {card}, "
+        f"{comm!r}, wire {comm.allreduce_grad_dtype}; set-up "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(b) for b in batches[:W_WARM]]
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(W_TIMED + 1)]
+    marks[0].record()
+    for i, b in enumerate(batches[W_WARM:W_WARM + W_TIMED]):
+        losses.append(step(b))
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    med = ms[len(ms) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [x.item() for x in losses]
+    tok_s = n_tok / med * 1e3
+    pwall, busy, kinds = profile_step(
+        torch, lambda: step(batches[0]), log, top=12,
+        what="wmt transformer step", kind_of=wmt_kind)
+    log(f"wmt transformer on {card}: median step {med:.2f} ms, "
+        f"{tok_s:.0f} tokens/s (src + tgt, {n_tok} a step), peak "
+        f"{peak:.2f} GiB, step-0 loss {losses[0]:.5f} (ln V = "
+        f"{math.log(args.vocab):.3f}), losses "
+        f"{' '.join(f'{x:.5f}' for x in losses)}; profiled step idle "
+        f"share {1 - busy / pwall:.3f}")
+    bad = []
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite loss {losses}")
+    if not abs(losses[0] - math.log(args.vocab)) < W_LOSS0_WINDOW:
+        bad.append(f"step-0 loss {losses[0]} far from ln V")
+    del model, opt, step, batches
+    torch.cuda.empty_cache()
+    argv = WMT + ["--device", "cuda", "--epochs", "1", "--steps", "3",
+                  "--train-size", str(3 * 96)]
+    log(f"wmt example: {' '.join(argv)}")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main_loss = ex.main(argv)
+    for line in buf.getvalue().splitlines():
+        log("  | " + line)
+    log(f"wmt example main: last loss {main_loss:.5f}, "
+        f"{time.perf_counter() - t:.1f}s")
+    if not math.isfinite(main_loss):
+        bad.append(f"main's loss {main_loss}")
+    if bad:
+        raise AssertionError("phase 8a: " + "; ".join(bad))
+    torch.cuda.empty_cache()
+    return {"step_ms": med, "tokens_per_s": tok_s, "tokens_per_step": n_tok,
+            "peak_gib": peak, "losses": losses, "params": n_params,
+            "profile": {"wall_ms": pwall, "busy_ms": busy,
+                        "idle_share": 1 - busy / pwall, "ms_by_kind": kinds},
+            "main_loss": main_loss}
+
+
+def phase_seq2seq(torch, log, card):
+    """8b: the seq2seq example at full width through ``MultiNodeChainList``
+    at world size 1 (encoder and decoder both on rank 0: every transfer
+    a local pass-through), in both parameter tiers."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch.examples import seq2seq as ex
+
+    out = {}
+    for tier, extra in (("replicated", []), ("sharded", ["--sharded-params"])):
+        argv = S2S + ["--communicator", "pure_nccl", "--device", "cuda"]
+        argv += extra
+        log(f"seq2seq example {tier}: {' '.join(argv)}")
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = ex.run(ex.parser().parse_args(argv))
+        wall = time.perf_counter() - t
+        for line in buf.getvalue().splitlines():
+            log("  | " + line)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[tier] = {"losses": res["losses"], "accuracy": res["accuracy"],
+                     "bleu": res["bleu"], "wall_s": wall, "peak_gib": peak}
+        log(f"seq2seq {tier} on {card}: losses "
+            f"{' '.join(f'{x:.5f}' for x in res['losses'])}; accuracy "
+            f"{res['accuracy']:.4f}, BLEU {res['bleu'] * 100:.2f}; "
+            f"{wall:.1f}s with evaluation, peak {peak:.2f} GiB")
+        del res
+        torch.cuda.empty_cache()
+    rep, shd = out["replicated"]["losses"], out["sharded"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(shd, rep))
+    out["tier_max_rel_diff"] = rel
+    log(f"seq2seq tiers: worst relative loss difference {rel:.3g} (limit "
+        f"{S2S_TIER_RTOL}), bitwise {shd == rep}")
+    bad = []
+    for tier in ("replicated", "sharded"):
+        if len(out[tier]["losses"]) != 10 or not all(
+                math.isfinite(x) for x in out[tier]["losses"]):
+            bad.append(f"{tier} losses {out[tier]['losses']}")
+    if not rel <= S2S_TIER_RTOL:
+        bad.append(f"tiers {rel} apart")
+    if bad:
+        raise AssertionError("phase 8b: " + "; ".join(bad))
+    return out
+
+
+def phase_model_parallel(torch, log, card):
+    """Phase 8: 8a then 8b in a fresh NCCL process group."""
+    from chainermn_tpu_torch.examples import train_transformer as ex
+
+    t0 = time.perf_counter()
+    out = {"card": card, "wmt": phase_wmt(torch, log, card, ex),
+           "seq2seq": phase_seq2seq(torch, log, card)}
+    torch.distributed.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 8: {out['wall_s']:.1f}s")
     return out
 
 
@@ -1130,6 +1348,7 @@ def main(argv=None) -> int:
                   "lm_zero3": phase_lm_zero3(torch, K, log, train),
                   "card": card}
     imagenet = phase_imagenet(torch, log, card)
+    model_parallel = phase_model_parallel(torch, log, card)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -1148,6 +1367,7 @@ def main(argv=None) -> int:
     print(json.dumps({"train": summary}), flush=True)
     print(json.dumps({"dp_surface": dp_surface}), flush=True)
     print(json.dumps({"imagenet": imagenet}), flush=True)
+    print(json.dumps({"model_parallel": model_parallel}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -415,6 +415,7 @@ STATE_VARIANTS = {
     "double_buffering": {"double_buffering": True},
     "zero1": {"stage": 1}, "zero3": {"stage": 3},
     "lars_zero1": {"stage": 1, "optimizer": "lars"},
+    "lars_zero3": {"stage": 3, "optimizer": "lars"},
 }
 STATE_NET = dict(stage_sizes=[1, 1], num_filters=4, num_classes=10)
 STATE_STEPS, STATE_BATCH, STATE_SIZE = 4, 16, 16
@@ -426,20 +427,6 @@ def state_model(device="cpu", seed=0):
 
     return ResNet(block_cls=BottleneckBlock, dtype=torch.float32,
                   device=device, seed=seed, **STATE_NET)
-
-
-def flax_order(model):
-    """``model``'s parameters in the order of the reference's flat ZeRO
-    buffer (jax's sorted tree leaves, under flax's leaf names), so that
-    each rank's shard holds the same elements as the reference's and
-    LARS's per-shard trust ratio is taken over the same values."""
-    def key(item):
-        *path, leaf = item[0].split(".")
-        if leaf == "weight":
-            leaf = "kernel" if item[1].dim() > 1 else "scale"
-        return (*path, leaf)
-
-    return [p for _, p in sorted(model.named_parameters(), key=key)]
 
 
 def state_batch():
@@ -454,19 +441,27 @@ def state_run(variant, comm):
     import torch.nn.functional as F
 
     from chainermn_tpu_torch import create_multi_node_optimizer
+    from chainermn_tpu_torch.convert import flax_flat_layout
     from chainermn_tpu_torch.optim import LARS, linear_schedule
 
     cfg = {"stage": 0, "overlap": None, "double_buffering": False,
            "optimizer": "sgd", **STATE_VARIANTS[variant]}
     model = state_model(comm.device)
-    params = flax_order(model)
-    inner = (LARS(params, momentum=0.9, weight_decay=1e-4)
-             if cfg["optimizer"] == "lars"
+    # The reference's leaf order, so that each rank's ZeRO shard holds the
+    # reference shard's elements; LARS's per-shard trust ratio also needs
+    # them in flax's layouts.  SGD's update is elementwise, so the other
+    # variants keep the module's layouts: on the card cuDNN takes other
+    # weight-gradient kernels for a permuted (HWIO) view, which would move
+    # ZeRO-3 further from stage 0 than the NCCL test's bound.
+    params, layout = flax_flat_layout(model)
+    lars = cfg["optimizer"] == "lars"
+    inner = (LARS(params, momentum=0.9, weight_decay=1e-4) if lars
              else torch.optim.SGD(params, lr=0.0, momentum=0.9))
     mno = create_multi_node_optimizer(
         inner, comm, double_buffering=cfg["double_buffering"],
         zero_stage=cfg["stage"],
-        lr_schedule=linear_schedule(0.0, STATE_LR, STATE_WARMUP))
+        lr_schedule=linear_schedule(0.0, STATE_LR, STATE_WARMUP),
+        flat_layout=layout if lars else None)
     mno.init()
     step = mno.make_train_step_with_state(
         lambda b: F.cross_entropy(model(b[0]), b[1].long()), model,

@@ -3,9 +3,9 @@ SGD and ``LARS`` against optax on random tensors; ``MultiNodeOptimizer
 .make_train_step_with_state`` against the reference's, step by step, at
 1, 2 and 4 ranks (gloo workers from ``_torch_dp_worker.py``) against
 meshes of as many devices, at stage 0, overlap off, double buffering,
-ZeRO-1 and ZeRO-3 and LARS under ZeRO-1; and the port's example end to
-end on the CPU (training, every architecture, checkpoint resume, the
-host-plane flags it refuses).
+ZeRO-1 and ZeRO-3 and LARS under ZeRO-1 and ZeRO-3, every parameter
+value; and the port's example end to end on the CPU (training, every
+architecture, checkpoint resume, the host-plane flags it refuses).
 
 Tolerances: optimizer updates rtol 1e-6 (one fp32 expression each, the
 same order of operations, fused differently); the 4-step training
@@ -180,19 +180,14 @@ def test_with_state_step_matches_reference_one_rank(variant):
     assert got["updates"] == worker.STATE_STEPS - skipped
 
 
-ACROSS = {2: ("stage0", "double_buffering", "zero3"),
+ACROSS = {2: ("stage0", "double_buffering", "zero3", "lars_zero1",
+              "lars_zero3"),
           4: tuple(worker.STATE_VARIANTS)}
-# LARS under ZeRO takes its trust ratio per flat shard.  The shards cut
-# the flat buffer at the same offsets on both sides (the workers hand the
-# optimizer its parameters in the reference's leaf order), but a conv
-# kernel is flattened in its own layout (HWIO in the reference, OIHW in
-# the port), so where one straddles two shards its elements split
-# differently, both shards' norms differ and so does every update in
-# them (at 4 ranks: the shards holding ``conv_proj`` of block 1 and the
-# ``Dense_0`` kernel, each a straddler).  Across ranks that variant is
-# held to the reference's losses, and its parameters to equality over
-# the ranks (at one rank the shard is the whole buffer: compared above).
-SHARD_LAYOUT = ("lars_zero1",)
+# LARS under ZeRO takes its trust ratio per flat shard.  The workers hand
+# the optimizer its parameters in the reference's leaf order and the flat
+# buffer holds each in flax's layout (``convert.flax_flat_layout``), so
+# every shard, a conv kernel that straddles two shards included, holds the
+# reference shard's elements and every parameter value is held to it.
 
 
 @pytest.mark.parametrize("size", list(ACROSS))
@@ -207,12 +202,8 @@ def test_with_state_step_matches_reference_across_ranks(tmp_path, size):
         for r, out in enumerate(res):
             assert out[variant]["state"] == res[0][variant]["state"], \
                 (variant, r)
-            if variant in SHARD_LAYOUT:
-                np.testing.assert_allclose(out[variant]["losses"],
-                                           want_losses, **TRAIN)
-            else:
-                _assert_matches(out[variant], want_losses, want_state,
-                                f"{variant} rank {r}")
+            _assert_matches(out[variant], want_losses, want_state,
+                            f"{variant} rank {r}")
 
 
 def _spawn(size, tmp_path, **args):

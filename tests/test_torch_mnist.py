@@ -309,3 +309,13 @@ def _spawn_pair(kind, tmp_path, **args):
                 p.join()
     return [json.loads((tmp_path / f"rank{r}.json").read_text())
             for r in range(2)]
+
+
+@pytest.mark.parametrize("n,bs", [(100, 16), (96, 16), (1, 8), (0, 4)])
+def test_get_n_iterations_for_one_epoch_equals_reference(n, bs):
+    from chainermn_tpu.datasets import get_n_iterations_for_one_epoch as want
+    from chainermn_tpu_torch.datasets import get_n_iterations_for_one_epoch
+
+    ds = port_toy.SyntheticSeqDataset(n=n, src_len=2, tgt_len=2)
+    assert get_n_iterations_for_one_epoch(ds, bs) == want(ds, bs) \
+        == -(-n // bs)

@@ -8,6 +8,16 @@ the MNIST example at its defaults (checkpoint resume included), and
 ``make_train_step_with_state`` on a small ResNet (BatchNorm buffers
 averaged over the ranks).
 
+The model-parallel API over NCCL (one spawn of ``_torch_dist_worker``'s
+``mp_nccl`` across the cards, one on a single card, and the same
+function and chain cases on gloo for comparison): ``send``/``recv``
+between the first and the last rank with its gradient, the collectives'
+values and gradients, the two-stage, three-stage and branching chains
+against the composition, the seq2seq example with its encoder on rank 0
+and its decoder on the last rank at full width in both tiers, the WMT
+example across the cards against one card, and a split of a split
+communicator.
+
 Imports only torch, numpy and the port: on a host with two or more GPUs,
 ``python -m pytest --noconftest tests/test_torch_nccl_cuda.py -q``
 (up to 4 ranks).  With fewer GPUs every test skips.
@@ -20,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_dist_worker as mp_worker
 import _torch_dp_worker as worker
 
 JOIN_TIMEOUT_S = 600
@@ -174,3 +185,176 @@ def test_with_state_step_over_nccl(nccl):
         assert worst[key] <= 1e-5, (key, worst[key])
         assert runs["double_buffering"]["updates"] == \
             runs["stage0"]["updates"] - 1
+
+
+# -- the model-parallel API over NCCL ----------------------------------------
+
+# The seq2seq example across the cards against one card: the same
+# operations on the same values (the transfers are copies and the
+# replicated tier's sum adds zeros), so within 1e-5 relative; its two
+# tiers within 1e-5 relative (the same arithmetic on views of a flat row).
+S2S_RTOL = 1e-5
+# The WMT example (bf16 model, bf16 gradient wire) across the cards against
+# one card: each rank's quarter of the batch, the mean taken on the bf16
+# wire in another order, over 8 steps: within 0.02 of each loss.
+WMT_ATOL = 0.02
+
+
+@pytest.fixture(scope="module")
+def cards(tmp_path_factory):
+    size = _world()
+    return mp_worker.spawn("mp_nccl", size, tmp_path_factory.mktemp("cards"),
+                           timeout_s=JOIN_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def one_card(tmp_path_factory):
+    _world()
+    return mp_worker.spawn("mp_nccl", 1, tmp_path_factory.mktemp("one_card"),
+                           timeout_s=JOIN_TIMEOUT_S)[0]
+
+
+@pytest.fixture(scope="module")
+def gloo(tmp_path_factory):
+    """The same function and chain cases on gloo (CPU), which the CPU
+    tests hold to the JAX reference."""
+    size = _world()
+    return {kind: mp_worker.spawn(kind, size, tmp_path_factory.mktemp(kind),
+                                  timeout_s=JOIN_TIMEOUT_S)
+            for kind in ("functions", "chains")}
+
+
+@pytest.mark.cuda
+def test_send_recv_and_gradient_over_nccl(cards, gloo):
+    """Between rank 0 and the last rank: the payload, the gradient back to
+    the sender, ``pseudo_connect``, merged delegates, a tuple payload, a
+    send to self and ``ring_exchange``, as on gloo."""
+    last = len(cards) - 1
+    assert cards[0]["backend"] == "nccl"
+    f0 = cards[0]["functions"]
+    assert f0["sender_grad"] == 18.0 and f0["grafted_grad"] == 40.0
+    assert f0["merged_is_delegate"]
+    assert f0["merged_grads"] == [[10.0, 10.0], [42.0]]
+    assert cards[last]["functions"]["received"] == 3.0
+    assert cards[1]["functions"]["tuple_payload"] == [
+        [2.0, 4.0], [7, 8], "torch.int64", False, [9.0]]
+    for out, ref in zip(cards, gloo["functions"]):
+        f = out["functions"]
+        assert f["self_grad"] == 64.0
+        assert f["send_recv"] == ref["send_recv"]
+        assert f["ring"] == ref["ring"]
+
+
+@pytest.mark.cuda
+def test_collectives_over_nccl(cards, gloo):
+    for r, (out, ref) in enumerate(zip(cards, gloo["functions"])):
+        for name, got in out["functions"]["coll"].items():
+            want = ref["coll"][name]
+            np.testing.assert_allclose(got["y"], want["y"], rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{name} {r}")
+            np.testing.assert_allclose(got["grad"], want["grad"], rtol=1e-5,
+                                       atol=1e-6, err_msg=f"{name} {r}")
+
+
+def _composition(name, size):
+    """The chain composed on one process (CPU, float64): output and each
+    component's gradients of sum(y ** 2)."""
+    comps, shapes = mp_worker.chain_specs(size)[name]
+    params = [None if s is None else {
+        k: torch.from_numpy(v).double().requires_grad_(True)
+        for k, v in mp_worker.chain_params(i, *s).items()}
+        for i, s in enumerate(shapes)]
+    x = torch.from_numpy(mp_worker.chain_input(9, 5, 4)).double()
+    outs = {}
+    for i, (fn, owner, rank_in, _) in enumerate(comps):
+        inp = (x if rank_in is None else
+               outs[rank_in] if isinstance(rank_in, int) else
+               tuple(outs[r] for r in rank_in))
+        outs[owner] = fn(params[i], inp)
+    y = outs[comps[-1][1]]
+    (y ** 2).sum().backward()
+    return y.detach().numpy(), [{} if p is None else
+                                {k: v.grad.numpy() for k, v in p.items()}
+                                for p in params]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["two_stage", "three_stage", "branching"])
+def test_chains_over_nccl_match_composition(cards, gloo, name):
+    """Forward and gradients against the composition (rtol 1e-4, atol 1e-5,
+    the reference's tolerance): each component's gradient on its owner
+    only; the sharded tier and errors as on gloo."""
+    size = len(cards)
+    if name != "two_stage" and size < 3:
+        pytest.skip("needs three or more CUDA devices")
+    y, grads = _composition(name, size)
+    comps = mp_worker.chain_specs(size)[name][0]
+    for r, out in enumerate(cards):
+        got = out["chains"][name]
+        np.testing.assert_allclose(got["y"], y, rtol=1e-4, atol=1e-5)
+        for i, comp in enumerate(comps):
+            for k, g in got["grads"][i].items():
+                if comp[1] == r:
+                    np.testing.assert_allclose(g, grads[i][k], rtol=1e-4,
+                                               atol=1e-5)
+                else:
+                    assert g is None
+    for out, ref in zip(cards, gloo["chains"]):
+        c = out["chains"]
+        assert c["sharded"]["equal"] and c["sharded"]["roundtrip"]
+        assert c["sharded"]["row_numel"] == ref["sharded"]["row_numel"]
+        np.testing.assert_allclose(c["train"]["sharded_losses"],
+                                   c["train"]["replicated_losses"], rtol=1e-6)
+        np.testing.assert_allclose(c["train"]["sharded_losses"],
+                                   ref["train"]["sharded_losses"], rtol=1e-5)
+        assert set(c["errors"]) == set(ref["errors"])
+
+
+@pytest.mark.cuda
+def test_seq2seq_example_over_nccl(cards, one_card):
+    """Encoder on rank 0, decoder on the last rank, at full width (unit
+    1024, 2 layers, vocab 32768, 50 tokens, batch 64), both tiers: the
+    same losses on every rank, in both tiers and on one card."""
+    one = one_card["seq2seq"]["replicated"]["losses"]
+    assert len(one) == 10 and np.all(np.isfinite(one))
+    for out in cards:
+        s = out["seq2seq"]
+        for tier in ("replicated", "sharded"):
+            assert s[tier]["losses"] == cards[0]["seq2seq"][tier]["losses"]
+            np.testing.assert_allclose(s[tier]["losses"], one,
+                                       rtol=S2S_RTOL, err_msg=tier)
+            assert 0.0 <= s[tier]["bleu"] <= 1.0
+        np.testing.assert_allclose(s["sharded"]["losses"],
+                                   s["replicated"]["losses"], rtol=S2S_RTOL)
+    np.testing.assert_allclose(one_card["seq2seq"]["sharded"]["losses"], one,
+                               rtol=S2S_RTOL)
+
+
+@pytest.mark.cuda
+def test_wmt_example_over_nccl(cards, one_card):
+    """The example's pipeline across the cards against one card on the same
+    global batches, and its ``main`` across the cards."""
+    one = one_card["wmt"]
+    assert len(one) == mp_worker.WMT_CARD_STEPS and np.all(np.isfinite(one))
+    for out in cards:
+        assert out["wmt"] == cards[0]["wmt"]
+        np.testing.assert_allclose(out["wmt"], one, rtol=0, atol=WMT_ATOL)
+        assert np.isfinite(out["wmt_main"])
+    assert f"tok/s over {len(cards)} devices" in cards[0]["wmt_main_printed"]
+
+
+@pytest.mark.cuda
+def test_split_of_a_split_over_nccl(cards):
+    """The world split by parity (keys reversed), each half split again
+    over the same members with the order reversed back, and into single
+    ranks: NCCL groups among the members only."""
+    size = len(cards)
+    for r, out in enumerate(cards):
+        sp = out["split"]
+        half = sorted([m for m in range(size) if m % 2 == r % 2],
+                      reverse=True)
+        assert sp["sub"] == [half.index(r), len(half), half]
+        assert sp["subsub"] == [half[::-1].index(r), len(half), half[::-1]]
+        assert sp["solo"] == [0, 1]
+        assert sp["backend"] == "nccl"
+        assert sp["grad_err"] < 1e-6

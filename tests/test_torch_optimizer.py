@@ -158,3 +158,17 @@ def test_contract_errors():
     step = mno.make_train_step(lambda b: (b[0] @ p).mean(), n_accum=3)
     with pytest.raises(ValueError, match="divisible"):
         step((torch.zeros(64, 4),))
+
+
+def test_broadcast_params_replicates_rank0(tmp_path):
+    """At 2 gloo ranks with parameters that differ by rank:
+    ``broadcast_params`` of a mapping, then of the wrapped optimizer's
+    parameters (the default), leaves every rank with rank 0's values."""
+    import _torch_dist_worker as worker
+
+    res = worker.spawn("broadcast_params", 2, tmp_path)
+    assert res[0]["before"] != res[1]["before"]
+    for out in res:
+        assert out["w"] == [1.0] * 6
+        assert out["b"] == [0.0, 1.0, 2.0, 3.0]
+        assert out["extra"] == [10.0, 10.0]
