@@ -616,8 +616,16 @@ class CommunicatorBase:
             raise TimeoutError(f"barrier: {e}") from e
 
     # -- split -----------------------------------------------------------
-    def split(self, color, key: int = 0):
-        """``MPI_Comm_split``: collective over this communicator.  Ranks
+    @property
+    def device_size(self) -> int:
+        """Devices of this communicator: one a process here, so its
+        ``size`` (the reference's SPMD communicator counts devices)."""
+        return self.size
+
+    def split(self, color_or_axes, key: int = 0):
+        """``MPI_Comm_split`` in the reference's two shapes.
+
+        ``split(color, key=0)``: collective over this communicator.  Ranks
         with the same ``color`` form a communicator of the same class,
         ranked by ``(key, old rank)``; ``color=None`` (``MPI_UNDEFINED``)
         takes part and gets ``None``.  The new communicator has its own
@@ -626,17 +634,76 @@ class CommunicatorBase:
         a class whose constraints that shape breaks falls back to
         ``xla_ici``, as in the reference.
 
+        ``split(("inter",))`` or ``split(("intra",))``: the communicator
+        over one axis of this one's ``(inter, intra)`` grid — the ranks
+        that share this rank's coordinate on the other axis, ranked by
+        their coordinate on the kept one (``("inter",)`` joins the ranks
+        of one ``intra_rank`` across the nodes, the data-parallel group of
+        a data x pipeline layout).  Both axes give this communicator's
+        ranks again.  ``hierarchical`` and ``two_dimensional`` split by
+        axis give ``xla_ici``, as in the reference.
+
         Splitting the world creates every color's groups on every rank in
         the same order (``new_group`` is collective over the world).
         Splitting a split communicator creates each group among its
         members only (``use_local_synchronization``), on NCCL as on gloo."""
+        axes = None
+        if not isinstance(color_or_axes, (str, tuple, list)):
+            color = color_or_axes
+        else:
+            axes = ((color_or_axes,) if isinstance(color_or_axes, str)
+                    else tuple(color_or_axes))
+            unknown = set(axes) - {"inter", "intra"}
+            if not axes or unknown:
+                raise ValueError(f"split axes must be drawn from ('inter', "
+                                 f"'intra'), got {color_or_axes!r}")
+            if set(axes) == {"inter", "intra"}:
+                color, key = 0, self.rank
+            elif axes[0] == "inter":
+                color, key = self.intra_rank, self.inter_rank
+            else:
+                color, key = self.inter_rank, self.intra_rank
         trips = self.allgather_obj(
             (None if color is None else int(color), int(key), self.rank))
+        # The two-leg patterns need both axes: split to one, they degrade
+        # to the flat collective, as the reference's do.
+        flat = axes is not None and self.name in ("hierarchical",
+                                                   "two_dimensional")
+        subs = self._split_groups(trips, always_xla_ici=flat)
+        return None if color is None else subs[int(color)]
+
+    def split_devices(self, colors, keys=None) -> dict:
+        """The reference's device-plane split: ``colors[r]`` (and
+        ``keys[r]``, default 0) for every rank ``r`` of this communicator,
+        the same lists on every rank.  Returns ``{color: communicator}``
+        over every color in order of its lowest member: an ``xla_ici``
+        communicator for each color that holds this rank, ``None`` for
+        the others (``MPI_COMM_NULL``); a ``None`` color places its rank
+        in no group.  Each group's ranks are ordered by ``(key, old
+        rank)``.  Collective: every rank calls it, with the same lists."""
+        n = self.size
+        colors = list(colors)
+        if len(colors) != n:
+            raise ValueError(
+                f"colors must have length device_size={n}, got {len(colors)}")
+        keys = [0] * n if keys is None else list(keys)
+        if len(keys) != n:
+            raise ValueError(
+                f"keys must have length device_size={n}, got {len(keys)}")
+        trips = [(c, int(k), r) for r, (c, k) in enumerate(zip(colors, keys))]
+        return self._split_groups(trips, always_xla_ici=True)
+
+    def _split_groups(self, trips, always_xla_ici: bool = False) -> dict:
+        """``{color: communicator or None}`` for the ``(color, key, rank)``
+        triples of every rank (``None`` colors in no group), creating each
+        color's process groups in order of its lowest member."""
+        from .xla_ici import XlaIciCommunicator
+
         colors = sorted({c for c, _, _ in trips if c is not None},
                         key=lambda c: min(r for cc, _, r in trips if cc == c))
         me = self._global(self.rank)
         backend = dist.get_backend(self.group)
-        mine = None
+        out = {}
         for c in colors:
             members = tuple(self._global(r) for _, r in
                             sorted((k, r) for cc, k, r in trips if cc == c))
@@ -649,25 +716,21 @@ class CommunicatorBase:
                 grp = _local_group(ranks)
                 obj = (None if backend == "gloo" else
                        _local_group(ranks, backend="gloo"))
-            else:
+            if me not in members:
+                out[c] = None
                 continue
-            if c == color:
-                mine = members, grp, obj
-        if color is None:
-            return None
-        members, grp, obj = mine
-        rank = members.index(me)
-        topo = Topology(
-            device=self.device, rank=rank, size=len(members),
-            intra_rank=0, intra_size=1, inter_rank=rank,
-            inter_size=len(members), intra_group=None, inter_group=grp,
-            group=grp, members=members, obj_group=obj)
-        try:
-            return type(self)(topo, **self._ctor_kwargs())
-        except ValueError:
-            from .xla_ici import XlaIciCommunicator
-
-            return XlaIciCommunicator(topo, **self._ctor_kwargs())
+            rank = members.index(me)
+            topo = Topology(
+                device=self.device, rank=rank, size=len(members),
+                intra_rank=0, intra_size=1, inter_rank=rank,
+                inter_size=len(members), intra_group=None, inter_group=grp,
+                group=grp, members=members, obj_group=obj)
+            cls = XlaIciCommunicator if always_xla_ici else type(self)
+            try:
+                out[c] = cls(topo, **self._ctor_kwargs())
+            except ValueError:
+                out[c] = XlaIciCommunicator(topo, **self._ctor_kwargs())
+        return out
 
     def __repr__(self):
         return (

@@ -48,6 +48,18 @@ flax leaf (shape)                      port name (shape)
 ``batch_stats`` ``mean`` / ``var``      ``running_mean`` / ``running_var``
 =====================================  ===================================
 
+The reference's ``ViT`` maps onto :class:`models.vit.ViT` by
+:func:`vit_flax_to_state_dict`: ``patchify`` as a conv, ``cls`` and
+``pos_embed`` as they are, ``block_i`` as an encoder layer onto
+``blocks.i``, ``final_norm`` and the dense ``head``.  The ViT example's
+three trees (``Patchify``: ``proj`` and ``pos``; ``Blocks``: ``block_i``;
+the head) map by :func:`vit_example_flax_to_state_dict`, which takes
+pipeline rank ``d``'s slice ``[d]`` of the stacked stage parameters —
+``(pp, ...)``, or ``(pp, v, ...)`` with interleaved chunks, whose ``v``
+state dicts it stacks back on a leading chunk axis.  The
+parallel-convolution net's per-device channel shards map by
+:func:`parallel_conv_flax_to_state_dict` (rank ``d`` takes ``[d]``).
+
 Every move is a reshape or a transpose, so each round trip is bit-exact.
 """
 
@@ -372,3 +384,99 @@ def flax_flat_layout(model):
     return ([p for _, p in named],
             [_TO_FLAX.get(p.dim()) if name.endswith("weight") else None
              for name, p in named])
+
+
+def stage_slice(tree, index):
+    """``tree`` (nested mappings of arrays) with every leaf indexed by
+    ``index`` along its leading axis: one rank's slice ``[d]`` of the
+    reference's stacked per-device parameters."""
+    if isinstance(tree, Mapping):
+        return {k: stage_slice(v, index) for k, v in tree.items()}
+    return np.asarray(tree)[index]
+
+
+def _conv_to_sd(sd, pre, conv):
+    sd[f"{pre}.weight"] = _t(np.asarray(conv["kernel"]).transpose(
+        _TO_TORCH[4]))
+    sd[f"{pre}.bias"] = _t(conv["bias"])
+
+
+def _dense_to_sd(sd, pre, dense):
+    sd[f"{pre}.weight"] = _t(np.asarray(dense["kernel"]).T)
+    sd[f"{pre}.bias"] = _t(dense["bias"])
+
+
+def _blocks_to_sd(sd, pre, tree):
+    i = 0
+    while f"block_{i}" in tree:
+        _encoder_layer_to_sd(sd, f"{pre}.{i}", tree[f"block_{i}"])
+        i += 1
+
+
+def vit_flax_to_state_dict(params) -> dict:
+    """The reference's ``ViT`` tree -> :class:`models.vit.ViT`'s
+    ``state_dict``."""
+    p = params.get("params", params)
+    sd = {}
+    _conv_to_sd(sd, "patchify", p["patchify"])
+    sd["cls"] = _t(p["cls"])
+    sd["pos_embed"] = _t(p["pos_embed"])
+    _blocks_to_sd(sd, "blocks", p)
+    _ln_to_sd(sd, "final_norm", p["final_norm"])
+    _dense_to_sd(sd, "head", p["head"])
+    return sd
+
+
+def vit_state_dict_to_flax(state_dict, n_heads: int) -> dict:
+    """The inverse of :func:`vit_flax_to_state_dict` (no ``"params"``
+    key)."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    tree = {"patchify": {
+        "kernel": np.ascontiguousarray(
+            sd["patchify.weight"].transpose(_TO_FLAX[4])),
+        "bias": sd["patchify.bias"]},
+        "cls": sd["cls"], "pos_embed": sd["pos_embed"]}
+    for i in range(_n_layers(sd, "blocks")):
+        tree[f"block_{i}"] = _encoder_layer_to_flax(sd, f"blocks.{i}",
+                                                    n_heads)
+    tree["final_norm"] = _ln_to_flax(sd, "final_norm")
+    tree["head"] = {"kernel": np.ascontiguousarray(sd["head.weight"].T),
+                    "bias": sd["head.bias"]}
+    return tree
+
+
+def vit_example_flax_to_state_dict(params, rank: int,
+                                   virtual_stages: int = 1) -> dict:
+    """The reference ViT example's ``{"embed", "stages", "head"}`` tree ->
+    the port example's ``{"embed", "stages", "head"}`` state dicts on
+    pipeline rank ``rank``: ``Patchify`` (``proj.{weight,bias}``,
+    ``pos``), that rank's ``Blocks`` (``blocks.i.*``; with
+    ``virtual_stages`` > 1 each entry stacks the rank's chunks on a
+    leading axis) and the head (``weight``, ``bias``)."""
+    def unwrap(t):
+        return t.get("params", t)
+
+    embed, head = unwrap(params["embed"]), unwrap(params["head"])
+    esd = {"pos": _t(embed["pos"])}
+    _conv_to_sd(esd, "proj", embed["proj"])
+    hsd = {"weight": _t(np.asarray(head["kernel"]).T),
+           "bias": _t(head["bias"])}
+    mine = unwrap(stage_slice(unwrap(params["stages"]), rank))
+    chunks = []
+    for l in range(virtual_stages):
+        tree = mine if virtual_stages == 1 else stage_slice(mine, l)
+        csd = {}
+        _blocks_to_sd(csd, "blocks", tree)
+        chunks.append(csd)
+    ssd = chunks[0] if virtual_stages == 1 else {
+        k: torch.stack([c[k] for c in chunks]) for k in chunks[0]}
+    return {"embed": esd, "stages": ssd, "head": hsd}
+
+
+def parallel_conv_flax_to_state_dict(stacked_params, rank: int) -> dict:
+    """The reference parallel-convolution example's stacked per-device
+    parameters (leading device axis) -> rank ``rank``'s channel-shard
+    ``state_dict`` of the port's ``ShardedConvNet`` (``conv_i`` and
+    ``head`` by name, as :func:`convnet_flax_to_state_dict` maps them)."""
+    p = stacked_params.get("params", stacked_params)
+    return convnet_flax_to_state_dict({"params": stage_slice(p, rank)})

@@ -3,6 +3,7 @@ load on first use, as the reference's lazy names do."""
 
 from .mlp import MLP  # noqa: F401
 from .transformer import TransformerLM  # noqa: F401
+from .vit import ViT  # noqa: F401
 
 
 def __getattr__(name):

@@ -65,12 +65,29 @@ of which fails the run when wrong:
    example (``MultiNodeChainList``, encoder and decoder both on rank 0)
    at unit 1024, 2 layers, vocab 32768, 50 tokens, batch 64, in both
    parameter tiers, their losses within a stated tolerance, with the
-   accuracy and BLEU.  No TPU kernel is on this path either.
+   accuracy and BLEU.  No TPU kernel is on this path either;
+9. the pipeline tier over NCCL in a fresh process group: (a) ViT-B/16
+   (224 px, patch 16, d_model 768, 12 heads, d_ff 3072, 12 layers, 1000
+   classes, bf16, batch 256 of a resident seeded batch) through
+   ``create_multi_node_optimizer(AdamW, double_buffering=True)
+   .make_train_step``: step 0 leaves the parameters as they are, step 1
+   equals AdamW's first update on step 0's gradients; median step, img/s,
+   peak memory, the model-FLOP count from the shapes and its share of the
+   bf16 peak, one profiled step; (b) the ViT example
+   (``examples/train_vit.py``) at full width in fp32, global batch 128 in
+   4 microbatches: ``gpipe`` and ``1f1b`` with 12 layers a stage and
+   ``1f1b --virtual-stages 2`` with 6, 4 steps each on the same weights
+   and batches, their losses within a stated tolerance, each run's step,
+   img/s and peak memory; (c) the parallel-convolution example
+   (``examples/train_parallel_conv.py``) at its defaults, every loss
+   finite.  No TPU kernel is on this path: the reference's ViTs run dense
+   attention.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 ``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
-``{"model_parallel": ...}``, the card's ``name, power.limit`` line, a
-JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
+``{"model_parallel": ...}``, a JSON line ``{"pipeline": ...}``, the
+card's ``name, power.limit`` line, a JSON line of per-kernel numbers, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1294,6 +1311,257 @@ def phase_model_parallel(torch, log, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the pipeline tier, ViT-B/16 and the parallel-convolution example
+# ---------------------------------------------------------------------------
+
+# ViT-B/16 (Dosovitskiy et al. 2021): 224 px, patch 16, d_model 768, 12
+# heads, d_ff 3072, 12 layers, 1000 classes; bf16, batch 256.
+VIT_BATCH, VIT_WARM, VIT_TIMED = 256, 2, 8
+# The ViT example at full width in fp32 (the reference example's dtype),
+# global batch 128 in 4 microbatches, 4 steps a run (the first untimed).
+VIT_EX = ["--image-size", "224", "--patch", "16", "--d-model", "768",
+          "--n-heads", "12", "--d-ff", "3072", "--n-classes", "1000",
+          "--batchsize", "128", "--microbatches", "4", "--epochs", "1"]
+VIT_EX_RUNS = {
+    "gpipe": ["--schedule", "gpipe", "--layers-per-stage", "12"],
+    "1f1b": ["--schedule", "1f1b", "--layers-per-stage", "12"],
+    "1f1b_v2": ["--schedule", "1f1b", "--virtual-stages", "2",
+                "--layers-per-stage", "6"],
+}
+VIT_EX_STEPS = 4
+# At world size 1 the three runs hold the same weights (each global layer
+# from its own seed) and compute the same fp32 gradients, summed in other
+# orders (GPipe's loss over the batch against 1F1B's mean of microbatch
+# losses; microbatch gradients accumulated in reverse against forward
+# order); AdamW (lr 1e-3) normalises each element's step, so an element
+# whose gradient cancels to its rounding error can step by a fraction of
+# lr: every loss within this relative distance of GPipe's.
+VIT_EX_LOSS_RTOL = 1e-4
+
+
+def vit_forward_flops(image=224, patch=16, d=768, d_ff=3072, layers=12,
+                      classes=1000):
+    """Model FLOPs of one ViT image forward, from the shapes (a multiply-
+    add is 2): the patchify conv, per layer the four projections, the two
+    attention products and the MLP, then the head."""
+    p = (image // patch) ** 2
+    t = p + 1
+    conv = 2 * p * d * patch * patch * 3
+    layer = 2 * t * d * d * 4 + 2 * t * t * d * 2 + 2 * t * d * d_ff * 2
+    return conv + layers * layer + 2 * d * classes
+
+
+def vit_kind(name):
+    low = name.lower()
+    if "conv" in low and "nccl" not in low:
+        return "conv"
+    return wmt_kind(name)
+
+
+def phase_vit_model(torch, log, card, comm):
+    """9a: ViT-B/16 through the multi-node optimizer with double
+    buffering: step 0 applies nothing, step 1 applies AdamW to step 0's
+    gradients; then timed and profiled steps."""
+    import torch.nn.functional as F
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.models.vit import ViT_B16
+
+    t0 = time.perf_counter()
+    model = ViT_B16(device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    lr, wd = 1e-3, 0.01
+    opt = cmn.create_multi_node_optimizer(
+        torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=wd),
+        comm, double_buffering=True)
+    opt.init()
+    step = opt.make_train_step(
+        lambda b: F.cross_entropy(model(b[0]), b[1]))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = (torch.randn(VIT_BATCH, 224, 224, 3, device="cuda",
+                         generator=gen),
+             torch.randint(0, 1000, (VIT_BATCH,), device="cuda",
+                           generator=gen))
+    log(f"vit-b/16 {n_params / 1e6:.2f}M params on {card}, {comm!r}, bf16, "
+        f"batch {VIT_BATCH}; set-up {time.perf_counter() - t0:.1f}s")
+    bad = []
+    params = list(model.parameters())
+    before = [p.detach().clone() for p in params]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(batch)]
+    if not all(torch.equal(a, p) for a, p in zip(before, params)):
+        bad.append("step 0 moved the parameters")
+    # Step 1 must apply AdamW's first update to step 0's gradients.
+    stale = [g.detach().clone() for g in opt._stale]
+    want = [p.detach().clone().requires_grad_() for p in params]
+    ref = torch.optim.AdamW(want, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=wd)
+    for w, g in zip(want, stale):
+        w.grad = g
+    ref.step()
+    losses.append(step(batch))
+    err = max(float((w - p).detach().abs().max())
+              for w, p in zip(want, params))
+    del want, ref, stale, before
+    if not err <= 1e-6:
+        bad.append(f"step 1 is not AdamW on step 0's gradients ({err})")
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(VIT_TIMED + 1)]
+    marks[0].record()
+    for i in range(VIT_TIMED):
+        losses.append(step(batch))
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+    med = ms[len(ms) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [x.item() for x in losses]
+    fwd = vit_forward_flops()
+    share = 3 * fwd * VIT_BATCH / (med * 1e-3) / PEAK_BF16_FLOPS
+    pwall, busy, kinds = profile_step(
+        torch, lambda: step(batch), log, top=12, what="vit-b/16 step",
+        kind_of=vit_kind)
+    log(f"vit-b/16 on {card}: median step {med:.2f} ms, "
+        f"{VIT_BATCH / med * 1e3:.0f} img/s, peak {peak:.2f} GiB; "
+        f"{fwd / 1e9:.2f} GFLOP an image forward, {3 * fwd / 1e9:.2f} train, "
+        f"{share:.3f} of the bf16 peak; step 1 vs AdamW on step 0's "
+        f"gradients {err:.3g}; losses {' '.join(f'{x:.5f}' for x in losses)}"
+        f"; profiled step idle share {1 - busy / pwall:.3f}")
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite loss {losses}")
+    if not abs(losses[0] - math.log(1000)) < 2.0:
+        bad.append(f"step-0 loss {losses[0]} far from ln 1000")
+    if bad:
+        raise AssertionError("phase 9a: " + "; ".join(bad))
+    del model, opt, step, batch, params
+    torch.cuda.empty_cache()
+    return {"step_ms": med, "img_per_s": VIT_BATCH / med * 1e3,
+            "peak_gib": peak, "params": n_params,
+            "gflop_forward": fwd / 1e9, "bf16_peak_share": share,
+            "step1_err": err, "losses": losses,
+            "profile": {"wall_ms": pwall, "busy_ms": busy,
+                        "idle_share": 1 - busy / pwall, "ms_by_kind": kinds}}
+
+
+def phase_vit_example(torch, log, card, comm):
+    """9b: the ViT example at full width, three schedules at world size
+    1 on the same weights and device-resident batches."""
+    from chainermn_tpu_torch.datasets.toy import batch_iterator
+    from chainermn_tpu_torch.examples import train_vit as ex
+
+    log("vit example fp32 matmuls: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}, float32_matmul_precision="
+        f"{torch.get_float32_matmul_precision()} (full fp32; set once at "
+        "the start of this script)")
+    base = VIT_EX + ["--device", "cuda", "--train-size",
+                     str(128 * VIT_EX_STEPS)]
+    t = time.perf_counter()
+    args = ex.parser().parse_args(base + VIT_EX_RUNS["gpipe"])
+    batches = [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+               for x, y in batch_iterator(ex.training_set(args), 128, seed=0)]
+    log(f"vit example data: {len(batches)} batches of 128 at 224 px on the "
+        f"card, {time.perf_counter() - t:.1f}s")
+    out, bad = {}, []
+    for name, extra in VIT_EX_RUNS.items():
+        argv = base + extra
+        args = ex.parser().parse_args(argv)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        run = ex.ViTPipeline(args, comm)
+        losses = [run.step(*batches[0])]
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(len(batches))]
+        marks[0].record()
+        for i, b in enumerate(batches[1:]):
+            losses.append(run.step(*b))
+            marks[i + 1].record()
+        torch.cuda.synchronize()
+        ms = sorted(a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+        med = ms[len(ms) // 2]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(x) for x in losses]
+        out[name] = {"argv": argv, "losses": losses, "step_ms": med,
+                     "img_per_s": 128 / med * 1e3, "peak_gib": peak,
+                     "first_step_s": first}
+        log(f"vit example {name} on {card}: {' '.join(extra)}; median step "
+            f"{med:.1f} ms, {128 / med * 1e3:.0f} img/s, peak {peak:.2f} GiB, "
+            f"first step {first:.1f}s; losses "
+            f"{' '.join(f'{x:.6f}' for x in losses)}")
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"{name}: non-finite loss {losses}")
+        del run
+        torch.cuda.empty_cache()
+    want = out["gpipe"]["losses"]
+    for name in ("1f1b", "1f1b_v2"):
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(out[name]["losses"], want))
+        out[name]["max_rel_loss_diff_vs_gpipe"] = rel
+        log(f"vit example {name} vs gpipe: worst relative loss difference "
+            f"{rel:.3g} (limit {VIT_EX_LOSS_RTOL})")
+        if not rel <= VIT_EX_LOSS_RTOL:
+            bad.append(f"{name} losses {rel} from gpipe's")
+    if bad:
+        raise AssertionError("phase 9b: " + "; ".join(bad))
+    return out
+
+
+def phase_parallel_conv(torch, log, card):
+    """9c: the parallel-convolution example at its defaults: its ``main``,
+    and its net and step with every loss kept."""
+    import contextlib
+    import io
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.datasets.toy import batch_iterator
+    from chainermn_tpu_torch.examples import train_parallel_conv as ex
+
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_loss = ex.main(["--device", "cuda"])
+    for line in buf.getvalue().splitlines():
+        log("  | " + line)
+    args = ex.parser().parse_args(["--device", "cuda"])
+    comm = cmn.create_communicator(args.communicator, device="cuda")
+    model = ex.make_model(args, comm)
+    step = ex.make_step(model, comm)
+    train = ex.training_set(args)
+    losses = [float(step(x, y)) for epoch in range(args.epochs)
+              for x, y in batch_iterator(train, args.batchsize, seed=epoch)]
+    wall = time.perf_counter() - t
+    log(f"parallel conv on {card}: main's last loss {main_loss:.5f}; "
+        f"{len(losses)} losses {losses[0]:.5f} ... {losses[-1]:.5f}; "
+        f"{wall:.1f}s")
+    if not (math.isfinite(main_loss) and all(map(math.isfinite, losses))):
+        raise AssertionError(f"phase 9c: non-finite loss {losses}")
+    return {"main_loss": main_loss, "losses": losses, "wall_s": wall}
+
+
+def phase_pipeline(torch, log, card):
+    """Phase 9: 9a, 9b and 9c in a fresh NCCL process group."""
+    import chainermn_tpu_torch as cmn
+
+    t0 = time.perf_counter()
+    comm = cmn.create_communicator("xla_ici", device="cuda")
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError("expected NCCL")
+    out = {"card": card, "vit_b16": phase_vit_model(torch, log, card, comm),
+           "vit_example": phase_vit_example(torch, log, card, comm),
+           "parallel_conv": phase_parallel_conv(torch, log, card)}
+    torch.distributed.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 9: {out['wall_s']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1349,6 +1617,7 @@ def main(argv=None) -> int:
                   "card": card}
     imagenet = phase_imagenet(torch, log, card)
     model_parallel = phase_model_parallel(torch, log, card)
+    pipeline = phase_pipeline(torch, log, card)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -1368,6 +1637,7 @@ def main(argv=None) -> int:
     print(json.dumps({"dp_surface": dp_surface}), flush=True)
     print(json.dumps({"imagenet": imagenet}), flush=True)
     print(json.dumps({"model_parallel": model_parallel}), flush=True)
+    print(json.dumps({"pipeline": pipeline}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,17 @@ and its decoder on the last rank at full width in both tiers, the WMT
 example across the cards against one card, and a split of a split
 communicator.
 
+The pipeline tier over NCCL (one spawn of ``_torch_pp_worker``'s
+``pp_nccl`` across four cards, one ``pp_one_card`` on one card, and the
+schedule and parallel-convolution cases on four gloo ranks to compare):
+the seven schedules of ``parallel/pipeline.py`` at pp=4 against gloo's
+results; the ViT example at full width (fp32, global batch 128, 3
+steps) at pp=4 (``1f1b``, 3 layers a stage), dp=2 x pp=2 (``gpipe``, 6)
+and pp=4 interleaved (``1f1b --virtual-stages 3``, 1 layer a chunk)
+against all 12 layers on one card, with each layout's step time; and the
+parallel-convolution example across the cards against gloo, its step-0
+losses against one unsharded net on one card.
+
 Imports only torch, numpy and the port: on a host with two or more GPUs,
 ``python -m pytest --noconftest tests/test_torch_nccl_cuda.py -q``
 (up to 4 ranks).  With fewer GPUs every test skips.
@@ -32,6 +43,7 @@ import torch
 
 import _torch_dist_worker as mp_worker
 import _torch_dp_worker as worker
+import _torch_pp_worker as pp_worker
 
 JOIN_TIMEOUT_S = 600
 ZERO_TOL = dict(rtol=1e-5, atol=1e-6)    # allreduce and reduce-scatter may
@@ -358,3 +370,118 @@ def test_split_of_a_split_over_nccl(cards):
         assert sp["solo"] == [0, 1]
         assert sp["backend"] == "nccl"
         assert sp["grad_err"] < 1e-6
+
+
+# -- the pipeline tier over NCCL ---------------------------------------------
+
+# The schedules over NCCL against gloo's on the CPU: the same operations,
+# on the card's kernels (fp32, TF32 off by default): rtol 1e-5, atol 1e-6
+# for elements that cancel to near zero.
+PP_TOL = dict(rtol=1e-5, atol=1e-6)
+# The ViT example across the cards against one card: the same fp32
+# arithmetic split into stages (the GPipe layout's gradients are the
+# pipeline size times the others', which AdamW cancels up to its
+# epsilon), microbatch and data-row sums in other orders and cuBLAS's
+# kernels chosen per shape; AdamW (lr 1e-3, no warm-up) at this width
+# moves the loss by several units a step, so 1e-3 of each loss.  Each
+# parameter tensor's norm within 1e-3 of one card's, plus 5% of the norm
+# of one AdamW step over the tensor (lr sqrt(numel)): AdamW's first
+# steps move every element by about lr whatever its gradient's size, so
+# an element whose gradient is at rounding level may step the other way
+# when the data rows split the batch (observed: head.bias, started at
+# zero, 1.8e-3 of its norm apart at dp=2 x pp=2).
+VIT_WIDE_RTOL = 1e-3
+VIT_LR = 1e-3
+# The parallel-convolution example on the cards against gloo: cuDNN's and
+# the CPU's convolutions differ in their last bits, and Adam normalises
+# each element's step (lr 1e-3): losses 1e-4 relative, parameters 1e-4
+# relative or 5e-5 absolute.
+PCONV_RTOL, PCONV_ATOL = 1e-4, 5e-5
+
+
+def _four():
+    if _world() < 4:
+        pytest.skip("needs four CUDA devices")
+    return 4
+
+
+@pytest.fixture(scope="module")
+def pp_cards(tmp_path_factory):
+    return pp_worker.spawn("pp_nccl", _four(),
+                           tmp_path_factory.mktemp("pp_cards"),
+                           timeout_s=JOIN_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def pp_one_card(pp_cards, tmp_path_factory):
+    inits = [out["pconv"]["init"] for out in pp_cards]
+    return pp_worker.spawn("pp_one_card", 1,
+                           tmp_path_factory.mktemp("pp_one_card"),
+                           timeout_s=JOIN_TIMEOUT_S, pconv_inits=inits)[0]
+
+
+@pytest.fixture(scope="module")
+def pp_gloo(tmp_path_factory):
+    return pp_worker.spawn("pipeline_pconv", _four(),
+                           tmp_path_factory.mktemp("pp_gloo"),
+                           timeout_s=JOIN_TIMEOUT_S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(pp_worker.PP_CASES))
+def test_schedules_over_nccl_match_gloo(pp_cards, pp_gloo, name):
+    for r, (out, ref) in enumerate(zip(pp_cards, pp_gloo)):
+        assert out["backend"] == "nccl"
+        got, want = out["pipeline"][name], ref["pipeline"][name]
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_allclose(np.asarray(got[key]),
+                                       np.asarray(want[key]),
+                                       err_msg=f"{name} {key} rank {r}",
+                                       **PP_TOL)
+        assert out["pipeline"]["errors"] == ref["pipeline"]["errors"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(pp_worker.VIT_WIDE_CARDS))
+def test_vit_example_across_cards_matches_one_card(pp_cards, pp_one_card,
+                                                   layout):
+    one = pp_one_card["vit"]
+    assert len(one["losses"]) == 3 and np.all(np.isfinite(one["losses"]))
+    norms = {}
+    for out in pp_cards:
+        run = out["vit"][layout]
+        assert run["losses"] == pp_cards[0]["vit"][layout]["losses"]
+        np.testing.assert_allclose(run["losses"], one["losses"],
+                                   rtol=VIT_WIDE_RTOL, err_msg=layout)
+        norms.update(run["norms"])
+    assert set(norms) == set(one["norms"])
+    worst = 0.0
+    for k, (v, numel) in one["norms"].items():
+        got, got_numel = norms[k]
+        assert got_numel == numel, k
+        bound = VIT_WIDE_RTOL * v + 0.05 * VIT_LR * numel ** 0.5
+        worst = max(worst, abs(got - v) / bound)
+        assert abs(got - v) <= bound, (layout, k, got, v, bound)
+    print(f"vit example {layout}: worst norm difference {worst:.3f} of its "
+          f"bound; step "
+          f"{[round(o['vit'][layout]['step_ms'], 1) for o in pp_cards]} ms, "
+          f"peak {[round(o['vit'][layout]['peak_gib'], 2) for o in pp_cards]}"
+          f" GiB; one card {one['step_ms']:.1f} ms, {one['peak_gib']:.2f} "
+          f"GiB; losses {run['losses']} vs {one['losses']}")
+
+
+@pytest.mark.cuda
+def test_parallel_conv_across_cards(pp_cards, pp_gloo, pp_one_card):
+    for r, (out, ref) in enumerate(zip(pp_cards, pp_gloo)):
+        got, want = out["pconv"], ref["pconv"]
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   rtol=PCONV_RTOL, err_msg=f"rank {r}")
+        for k, w in want["state"].items():
+            np.testing.assert_allclose(np.asarray(got["state"][k]),
+                                       np.asarray(w), rtol=PCONV_RTOL,
+                                       atol=PCONV_ATOL, err_msg=f"{r} {k}")
+        # Step 0: rank r's loss is that of one net holding every rank's
+        # channels and rank r's head.
+        np.testing.assert_allclose(got["losses"][0],
+                                   pp_one_card["pconv_step0"][r], rtol=1e-5)
