@@ -60,6 +60,11 @@ state dicts it stacks back on a leading chunk axis.  The
 parallel-convolution net's per-device channel shards map by
 :func:`parallel_conv_flax_to_state_dict` (rank ``d`` takes ``[d]``).
 
+The long-context example's parameters are the ``TransformerLM``'s; under
+``--vocab-tp`` each rank holds rows ``[r V/n, (r+1) V/n)`` of the table,
+which :func:`vocab_shard` takes from the full ``embed/embedding`` (or
+``embed.weight``).
+
 Every move is a reshape or a transpose, so each round trip is bit-exact.
 """
 
@@ -480,3 +485,14 @@ def parallel_conv_flax_to_state_dict(stacked_params, rank: int) -> dict:
     ``head`` by name, as :func:`convnet_flax_to_state_dict` maps them)."""
     p = stacked_params.get("params", stacked_params)
     return convnet_flax_to_state_dict({"params": stage_slice(p, rank)})
+
+
+def vocab_shard(table, rank: int, n: int):
+    """Rank ``rank``'s contiguous rows of a (V, D) embedding table split
+    over ``n`` vocab shards (the ownership of
+    ``parallel.sharding.vocab_parallel_embed``)."""
+    V = table.shape[0]
+    if V % n:
+        raise ValueError(f"vocab {V} does not split into {n} shards")
+    v = V // n
+    return table[rank * v:(rank + 1) * v]

@@ -78,6 +78,7 @@ from chainermn_tpu_torch.datasets.toy import (SyntheticImageDataset,
                                               batch_iterator)
 from chainermn_tpu_torch.models.layers import Conv, Dense
 from chainermn_tpu_torch.models.transformer import EncoderLayer
+from chainermn_tpu_torch.optim import OptaxAdamW
 from chainermn_tpu_torch.parallel import pipeline as pp
 from chainermn_tpu_torch.utils.profiling import sync
 
@@ -123,46 +124,6 @@ class Blocks(nn.Module):
         for block in self.blocks:
             x = block(x)
         return x
-
-
-class OptaxAdamW:
-    """``optax.adamw(lr, b1, b2, eps, weight_decay)`` over a list of
-    tensors, in optax's order of operations: the moments, the bias
-    corrections ``1 - b ** count`` in fp32, ``mu_hat / (sqrt(nu_hat) +
-    eps)``, plus ``weight_decay * p``, times ``-lr``; the update is then
-    scaled by the caller's ``scale`` and added."""
-
-    def __init__(self, params, lr: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 1e-4):
-        self.params = list(params)
-        self.lr, self.b1, self.b2 = lr, b1, b2
-        self.eps, self.weight_decay = eps, weight_decay
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
-
-    @torch.no_grad()
-    def update(self, grads, scale: float = 1.0):
-        self.count += 1
-        c1, c2 = (float(1 - torch.tensor(b, dtype=torch.float32) **
-                        self.count) for b in (self.b1, self.b2))
-        torch._foreach_mul_(self.mu, self.b1)
-        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1 - self.b1))
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_add_(self.nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - self.b2))
-        den = torch._foreach_div(self.nu, c2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, self.eps)
-        upd = torch._foreach_div(self.mu, c1)
-        torch._foreach_div_(upd, den)
-        torch._foreach_add_(upd, torch._foreach_mul(self.params,
-                                                    self.weight_decay))
-        torch._foreach_mul_(upd, -self.lr)
-        if scale != 1.0:
-            torch._foreach_mul_(upd, scale)
-        torch._foreach_add_(self.params, upd)
 
 
 class ViTPipeline:

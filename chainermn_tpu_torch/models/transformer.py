@@ -300,15 +300,54 @@ class TransformerLM(nn.Module):
         )
         self.to(dev)
 
-    def forward(self, tokens, return_hidden=False):
-        """``tokens`` (B, S) int.  ``return_hidden=True`` returns the
-        final-norm hidden states (B, S, d_model) — the input of
+    def _positions(self, position_offset, S: int):
+        """The sinusoidal rows added to the embeddings: ``(S, D)`` or, for
+        per-sequence positions, ``(B, S, D)``."""
+        if position_offset is None:
+            return self.pe[:S]
+        off = torch.as_tensor(position_offset, device=self.pe.device)
+        if off.dim() == 0:
+            # The reference's dynamic slice: the start clamps into range.
+            start = min(max(int(off), 0), self.pe.shape[0] - S)
+            return self.pe[start:start + S]
+        return self.pe[off.long()]
+
+    def forward(self, tokens, position_offset=None, return_hidden=False,
+                inputs_embeds=None):
+        """``tokens`` (B, S) int.
+
+        ``position_offset``: the global position of this shard's first
+        token (an int or 0-d tensor) when the sequence is sharded; an
+        ``(S,)`` tensor of explicit global positions (the zigzag layout);
+        or a ``(B, S)`` tensor of per-sequence positions.  The dense path's
+        causal mask is local, so a sharded sequence needs a
+        sequence-parallel ``attention_fn`` (ring, Ulysses).
+
+        ``inputs_embeds``: ``(B, S, d_model)`` embeddings replacing the
+        table lookup (positions are still added here): the entry point of
+        a vocab-sharded embedding, whose table lives outside this module.
+        It requires ``return_hidden=True``, since the tied head then has
+        no table either.
+
+        ``return_hidden=True`` returns the final-norm hidden states
+        (B, S, d_model) — the input of
         :func:`~chainermn_tpu_torch.ops.fused_ce.fused_cross_entropy` —
         instead of the logits ``embed.attend`` gives.  ``remat`` recomputes
         each layer in the backward (``torch.utils.checkpoint``)."""
         S = tokens.shape[1]
-        x = F.embedding(tokens, self.embed.weight).to(self.dtype)
-        x = x + self.pe[:S].to(self.dtype)
+        pos = self._positions(position_offset, S)
+        if inputs_embeds is None:
+            x = F.embedding(tokens, self.embed.weight).to(self.dtype)
+        else:
+            if not return_hidden:
+                raise ValueError(
+                    "inputs_embeds requires return_hidden=True: the tied "
+                    "embed.attend head has no table when the lookup is "
+                    "external (vocab-sharded) — compute the head with "
+                    "the same external table"
+                )
+            x = inputs_embeds.to(self.dtype)
+        x = x + (pos if pos.dim() == 3 else pos[None]).to(self.dtype)
         mask = (None if self.attention_fn is not None
                 else causal_mask(S, tokens.device))
         for layer in self.layers:

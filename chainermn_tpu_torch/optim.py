@@ -1,5 +1,4 @@
-"""The optax pieces of the ImageNet and WMT examples, as ``torch.optim``
-code.
+"""The optax pieces of the examples, as ``torch.optim`` code.
 
 * :func:`linear_schedule` is ``optax.linear_schedule``: a function of the
   update count, which starts at 0, so the first update takes
@@ -21,6 +20,8 @@ code.
   ratio is per parameter tensor; under ZeRO the multi-node optimizer
   rebuilds it over one flat shard, so the ratio is per shard there, as in
   the reference, which hands optax the flat shard.
+* :class:`OptaxAdamW` is ``optax.adamw`` in optax's order of operations
+  (the ViT and long-context examples).
 """
 
 from __future__ import annotations
@@ -121,4 +122,69 @@ class LARS(torch.optim.Optimizer):
                 else:
                     buf.mul_(group["momentum"]).add_(u)
                 p.sub_(buf)
+        return loss
+
+
+class OptaxAdamW(torch.optim.Optimizer):
+    """``optax.adamw(lr, b1, b2, eps, weight_decay)`` in optax's order of
+    operations: the moments, the bias corrections ``1 - b ** count`` in
+    fp32, ``mu_hat / (sqrt(nu_hat) + eps)``, plus ``weight_decay * p``,
+    times ``-lr``, added to the parameters.  :meth:`update` takes the
+    gradients as a list (and scales the update by ``scale``: the ViT
+    example's double-buffered step 0 runs it with 0); :meth:`step` takes
+    them from ``.grad`` (zeros where there is none), so the multi-node
+    optimizer can wrap it.  One parameter group; ``count`` is optax's
+    update count, kept in the group so that checkpoints carry it."""
+
+    def __init__(self, params, lr: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay, count=0))
+        if len(self.param_groups) != 1:
+            raise ValueError("OptaxAdamW takes one parameter group")
+
+    @property
+    def count(self) -> int:
+        return self.param_groups[0]["count"]
+
+    @torch.no_grad()
+    def update(self, grads, scale: float = 1.0):
+        group = self.param_groups[0]
+        params = group["params"]
+        b1, b2 = group["b1"], group["b2"]
+        for p in params:
+            if p not in self.state or not self.state[p]:
+                self.state[p] = {"mu": torch.zeros_like(p),
+                                 "nu": torch.zeros_like(p)}
+        mu = [self.state[p]["mu"] for p in params]
+        nu = [self.state[p]["nu"] for p in params]
+        group["count"] += 1
+        c1, c2 = (float(1 - torch.tensor(b, dtype=torch.float32) **
+                        group["count"]) for b in (b1, b2))
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1 - b2))
+        den = torch._foreach_div(nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, group["eps"])
+        upd = torch._foreach_div(mu, c1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_add_(upd, torch._foreach_mul(params,
+                                                    group["weight_decay"]))
+        torch._foreach_mul_(upd, -group["lr"])
+        if scale != 1.0:
+            torch._foreach_mul_(upd, scale)
+        torch._foreach_add_(params, upd)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        self.update([torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in self.param_groups[0]["params"]])
         return loss

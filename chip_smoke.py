@@ -81,13 +81,32 @@ of which fails the run when wrong:
    img/s and peak memory; (c) the parallel-convolution example
    (``examples/train_parallel_conv.py``) at its defaults, every loss
    finite.  No TPU kernel is on this path: the reference's ViTs run dense
-   attention.
+   attention;
+10. the sequence-parallel tier over NCCL in a fresh process group: (a)
+   the long-context example (``examples/train_lm.py``) at phase 4's
+   widths with S 16384 and batch 1 (``--sp none``, bf16): its ``main``
+   once, then four variants (plain, ``--kv-heads 4``, ``--packed``,
+   ``--window 4096``) for 4 steps each through its ``LongContextLM``,
+   every loss finite, step 0 within 1.5 of ln V, each flash kernel
+   launched 8 times a step (counts set to 0 before each run and read
+   after), the median step, tokens/s, peak memory and one profiled step;
+   (b) ``zigzag_ring_attention`` (its three flash half-blocks and the
+   merge, 3 launches of each kernel) and ``ulysses_attention`` at world
+   size 1 at (a)'s attention shapes (B 1, S 16384, H 16, D 128, bf16;
+   also Hk 4) and ``ring_attention`` (dense blocks) at S 4096 in fp32, forward
+   and the three gradients against ``flash_attention`` over the whole
+   sequence within the bf16 compare limits; (c) ``vocab_parallel_embed``
+   + ``vocab_parallel_cross_entropy`` at world size 1 (N 16384, V 32768,
+   D 2048) against ``F.embedding`` + ``fused_cross_entropy``; (d)
+   ``moe_layer`` with 8 experts on the card, top-2, capacity factor
+   1.25, T 8192, D 2048, expert d_ff 8192, bf16, against
+   ``dense_moe_oracle``, with its times.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 ``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
-``{"model_parallel": ...}``, a JSON line ``{"pipeline": ...}``, the
-card's ``name, power.limit`` line, a JSON line of per-kernel numbers, and
-``{"ok": true, "device": {...}}``.
+``{"model_parallel": ...}``, a JSON line ``{"pipeline": ...}``, a JSON
+line ``{"long_context": ...}``, the card's ``name, power.limit`` line, a
+JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1562,6 +1581,303 @@ def phase_pipeline(torch, log, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the long-context example and the sequence-parallel tier
+# ---------------------------------------------------------------------------
+
+# Phase 4's model at S 16384 (four times phase 4's sequence), one sequence.
+LC = ["--vocab", "32768", "--d-model", "2048", "--n-heads", "16",
+      "--d-ff", "8192", "--layers", "8", "--seq-len", "16384",
+      "--batchsize", "1", "--dtype", "bfloat16", "--sp", "none",
+      "--epochs", "1", "--steps-per-epoch", "4", "--device", "cuda"]
+LC_VARIANTS = {"plain": [], "kv_heads4": ["--kv-heads", "4"],
+               "packed": ["--packed"], "window4096": ["--window", "4096"]}
+LC_STEPS, LC_LAYERS = 4, 8
+# 10b/10c/10d shapes: (a)'s attention, its head, and an MoE FFN.
+SP_SHAPE = dict(B=1, S=16384, H=16, D=128)
+RING_S = 4096
+VP = dict(N=16384, V=32768, D=2048)
+MOE = dict(T=8192, D=2048, d_ff=8192, E=8, k=2, capacity_factor=1.25)
+# The layer and the oracle run the same products on the same operands
+# (the all-to-alls of one rank are copies), so they should agree exactly;
+# the limit allows one bf16 ulp of an O(1) output.
+MOE_ATOL = 2 ** -7
+
+
+def _within(torch, a, b, tol):
+    """(max abs error, worst element's share of ``atol + rtol |b|``, worst
+    tile's ||a - b|| / ||b|| over tiles of TILE positions along dim 1)."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    share = (d / (tol["atol"] + tol["rtol"] * b.abs())).max().item()
+    dims = tuple(i for i in range(a.dim()) if i != 1)
+    norm = torch.linalg.vector_norm
+    tile = max((norm(dt, dim=dims) / norm(bt, dim=dims).clamp_min(1e-30))
+               .max().item()
+               for dt, bt in zip(d.split(TILE, dim=1), b.split(TILE, dim=1)))
+    return d.max().item(), share, tile
+
+
+def phase_lc_example(torch, K, log, card, comm):
+    """10a: the example's ``main(argv)`` once, then each variant through
+    its ``LongContextLM`` and ``data_stream``: losses, launches, median
+    step, tokens/s, peak memory and one profiled step."""
+    import contextlib
+    import io
+
+    from chainermn_tpu_torch.examples import train_lm as ex
+
+    V = int(LC[LC.index("--vocab") + 1])
+    S = int(LC[LC.index("--seq-len") + 1])
+    want = LC_LAYERS * LC_STEPS
+    bad = []
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_loss = ex.main(LC)
+    launches = dict(K.LAUNCHES)
+    for line in buf.getvalue().splitlines():
+        log("  | " + line)
+    log(f"long-context main: last loss {main_loss:.5f}, launches {launches} "
+        f"(want {want} each), {time.perf_counter() - t:.1f}s")
+    if not math.isfinite(main_loss):
+        bad.append(f"main: non-finite loss {main_loss}")
+    bad += [f"main: {k} launched {n} times, not {want}"
+            for k, n in launches.items() if n != want]
+    out = {"main": {"argv": LC, "last_loss": main_loss,
+                    "launches": launches}}
+    for name, extra in LC_VARIANTS.items():
+        args = ex.parser().parse_args(LC + extra)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        run = ex.LongContextLM(args, comm)
+        n_params = sum(p.numel() for p in run.model.parameters())
+        build_s = time.perf_counter() - t
+        stream = ex.data_stream(args, run.seq_perm)
+        K.reset_launch_counts()
+        losses, times = [], []
+        for _ in range(LC_STEPS):
+            tok, tgt = next(stream)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(run.step(tok, tgt).item())
+            times.append((time.perf_counter() - t) * 1e3)
+        launches = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        med = sorted(times[1:])[len(times[1:]) // 2]
+        log(f"long-context {name} on {card}: {' '.join(extra) or 'plain'}; "
+            f"{n_params / 1e6:.1f}M params (built in {build_s:.1f}s); "
+            f"median step {med:.1f} ms, {S / med * 1e3:.0f} tokens/s, peak "
+            f"{peak:.2f} GiB; first step {times[0]:.0f} ms; launches "
+            f"{launches}; losses {' '.join(f'{x:.5f}' for x in losses)}")
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"{name}: non-finite loss {losses}")
+        if not abs(losses[0] - math.log(V)) < 1.5:
+            bad.append(f"{name}: step-0 loss {losses[0]} far from ln V")
+        bad += [f"{name}: {k} launched {n} times, not {want}"
+                for k, n in launches.items() if n != want]
+        pwall, busy, kinds = profile_step(
+            torch, lambda: run.step(*next(stream)), log,
+            what=f"long-context {name} step")
+        out[name] = {"argv": LC + extra, "params": n_params,
+                     "losses": losses, "step_ms": med,
+                     "tokens_per_s": S / med * 1e3, "peak_gib": peak,
+                     "launches": launches,
+                     "profile": {"wall_ms": pwall, "busy_ms": busy,
+                                 "idle_share": 1 - busy / pwall,
+                                 "ms_by_kind": kinds}}
+        del run, stream
+    if bad:
+        raise AssertionError("phase 10a: " + "; ".join(bad))
+    return out
+
+
+def _attention_case(torch, Hk, S, seed, dtype):
+    g = torch.Generator().manual_seed(seed)
+    B, H, D = SP_SHAPE["B"], SP_SHAPE["H"], SP_SHAPE["D"]
+
+    def rnd(h):
+        return torch.randn(B, S, h, D, generator=g).to("cuda", dtype)
+
+    return rnd(H), rnd(Hk), rnd(Hk), rnd(H)
+
+
+def _fwd_bwd(torch, fn, q, k, v, do):
+    qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+    o = fn(*qkv)
+    return (o.detach(),) + torch.autograd.grad(o, qkv, do)
+
+
+def phase_sp_functions(torch, K, log, comm):
+    """10b: the zigzag ring (its three kernel half-blocks and the merge)
+    and Ulysses at world size 1 in bf16, and the dense ring in fp32 (its
+    blocks compute in fp32 whatever the input: in bf16 the kernel's
+    rounding of P and dS dominates the comparison where dQ cancels),
+    forward and the three gradients against ``flash_attention`` over the
+    whole sequence."""
+    from chainermn_tpu_torch.ops.flash_attention import flash_attention
+    from chainermn_tpu_torch.parallel import ring_attention as ra
+    from chainermn_tpu_torch.parallel.ulysses import ulysses_attention
+
+    S = SP_SHAPE["S"]
+    whole = lambda q, k, v: flash_attention(q, k, v, causal=True)  # noqa
+    fns = {"zigzag": lambda q, k, v: ra.zigzag_ring_attention(q, k, v, comm),
+           "ulysses": lambda q, k, v: ulysses_attention(q, k, v, comm)}
+    want_launches = {"zigzag": 3, "ulysses": 1}
+    out, bad = {}, []
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(name, Hk, S, bf) for Hk in (SP_SHAPE["H"], 4) for name in fns]
+    cases.append(("ring", SP_SHAPE["H"], RING_S, f32))
+    fns["ring"] = lambda q, k, v: ra.ring_attention(q, k, v, comm)
+    want_launches["ring"] = 0
+    for i, (name, Hk, S_, dtype) in enumerate(cases):
+        tol = TOL[str(dtype)[6:]]
+        q, k, v, do = _attention_case(torch, Hk, S_, 200 + i, dtype)
+        ref = _fwd_bwd(torch, whole, q, k, v, do)
+        K.reset_launch_counts()
+        got = _fwd_bwd(torch, fns[name], q, k, v, do)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        rep, errs = [], {}
+        for part, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
+            err, share, tile = _within(torch, a, b, tol)
+            errs[part] = err
+            rep.append(f"{part} {err:.3g} ({share:.2f} of limit, tile "
+                       f"{tile:.2g})")
+            if not (share <= 1.0 and tile <= tol["tile_l2"]):
+                bad.append(f"{name} {dtype} Hk={Hk} {part}")
+        ms = time_ms(torch, lambda: _fwd_bwd(torch, fns[name], q, k, v, do),
+                     3)
+        ref_ms = time_ms(torch, lambda: _fwd_bwd(torch, whole, q, k, v, do),
+                         3)
+        tag = f"{name} {str(dtype)[6:]} Hk={Hk} S={S_}"
+        log(f"sp {tag}: {'; '.join(rep)}; launches {launches} (want "
+            f"{want_launches[name]} each); fwd+bwd {ms:.2f} ms against "
+            f"whole-sequence flash {ref_ms:.2f} ms")
+        if any(n != want_launches[name] for n in launches.values()):
+            bad.append(f"{tag} launches {launches}")
+        out[tag] = {"errors": errs, "launches": launches, "ms": ms,
+                    "flash_ms": ref_ms}
+        del q, k, v, do, ref, got
+    for dt, t in TOL.items():
+        log(f"sp limits {dt}: |a-b| <= {t['atol']} + {t['rtol']}*|b| per "
+            f"element, ||a-b||/||b|| <= {t['tile_l2']} per {TILE} positions "
+            "(all heads)")
+    if bad:
+        raise AssertionError("phase 10b: " + "; ".join(bad))
+    return out
+
+
+def phase_vocab_parallel(torch, log, comm):
+    """10c: ``vocab_parallel_embed`` + ``vocab_parallel_cross_entropy`` at
+    world size 1 against ``F.embedding`` + ``fused_cross_entropy``."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch.ops.fused_ce import fused_cross_entropy
+    from chainermn_tpu_torch.parallel import sharding
+
+    N, V, D = VP["N"], VP["V"], VP["D"]
+    g = torch.Generator().manual_seed(300)
+    emb0 = (torch.randn(V, D, generator=g) * D ** -0.5).cuda()
+    toks = torch.randint(0, V, (1, N), generator=g).cuda()
+    labels = torch.randint(0, V, (N,), generator=g)
+    labels[::7] = -1                               # ignored positions
+    labels = labels.cuda()
+
+    def vocab_tp(e):
+        x = sharding.vocab_parallel_embed(toks, e, comm, True)
+        return sharding.vocab_parallel_cross_entropy(
+            x.to(torch.bfloat16), e, labels, comm)
+
+    def dense(e):
+        x = F.embedding(toks, e)
+        return fused_cross_entropy(x.to(torch.bfloat16), e, labels)
+
+    res = {}
+    for name, fn in (("vocab_tp", vocab_tp), ("dense", dense)):
+        e = emb0.clone().requires_grad_()
+        loss = fn(e)
+        (ge,) = torch.autograd.grad(loss, [e])
+        ms = time_ms(torch, lambda: torch.autograd.grad(
+            fn(e), [e]), 3)
+        res[name] = (loss.item(), ge, ms)
+    (lv, gv, msv), (ld, gd, msd) = res["vocab_tp"], res["dense"]
+    rel = ((gv - gd).norm() / gd.norm()).item()
+    log(f"vocab parallel (world 1, N={N} V={V} D={D}): loss {lv:.6f} vs "
+        f"{ld:.6f}, table gradient relative l2 {rel:.3g} (limit 1e-6); "
+        f"fwd+bwd {msv:.2f} ms vs {msd:.2f} ms")
+    if not (abs(lv - ld) <= 1e-6 * abs(ld) and rel <= 1e-6):
+        raise AssertionError(f"phase 10c: loss {lv} vs {ld}, grad {rel}")
+    return {"loss": lv, "dense_loss": ld, "grad_rel_l2": rel, "ms": msv,
+            "dense_ms": msd}
+
+
+def phase_moe(torch, log, comm):
+    """10d: ``moe_layer`` with every expert on the card against
+    ``dense_moe_oracle``; its forward and forward + backward times."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch.parallel import moe
+
+    T, D, Fd, E = MOE["T"], MOE["D"], MOE["d_ff"], MOE["E"]
+    g = torch.Generator().manual_seed(400)
+    bf = torch.bfloat16
+    x = torch.randn(T, D, generator=g).to("cuda", bf)
+    gate_w = (torch.randn(D, E, generator=g) * D ** -0.5).to("cuda", bf)
+    params = {"w1": (torch.randn(E, D, Fd, generator=g) * D ** -0.5)
+              .to("cuda", bf).requires_grad_(),
+              "w2": (torch.randn(E, Fd, D, generator=g) * Fd ** -0.5)
+              .to("cuda", bf).requires_grad_()}
+
+    def expert(p, h):
+        return F.gelu(h @ p["w1"], approximate="tanh") @ p["w2"]
+
+    kw = dict(capacity_factor=MOE["capacity_factor"], k=MOE["k"])
+    y, aux = moe.moe_layer(x, gate_w, expert, params, comm,
+                           return_aux=True, experts_per_device=E, **kw)
+    want = moe.dense_moe_oracle(x, gate_w, expert, params, **kw)
+    err = (y.float() - want.float()).abs().max().item()
+    fwd_ms = time_ms(torch, lambda: moe.moe_layer(
+        x, gate_w, expert, params, comm, experts_per_device=E, **kw), 3)
+    step_ms = time_ms(torch, lambda: torch.autograd.grad(
+        moe.moe_layer(x, gate_w, expert, params, comm,
+                      experts_per_device=E, **kw).float().square().sum(),
+        list(params.values())), 3)
+    cap = max(1, int(MOE["capacity_factor"] * MOE["k"] * T / E))
+    log(f"moe (world 1, {E} experts on the card, top-{MOE['k']}, capacity "
+        f"{cap}, T={T} D={D} d_ff={Fd}, bf16): max |y - oracle| {err:.3g} "
+        f"(limit {MOE_ATOL}), load balance {float(aux['load_balance_loss']):.4f}, "
+        f"dropped {float(aux['dropped_fraction']):.4f}; forward {fwd_ms:.2f}"
+        f" ms, forward + backward {step_ms:.2f} ms")
+    if not err <= MOE_ATOL:
+        raise AssertionError(f"phase 10d: moe_layer differs from the oracle "
+                             f"by {err}")
+    return {"max_err": err, "forward_ms": fwd_ms, "step_ms": step_ms,
+            "capacity": cap,
+            "aux": {a: float(b) for a, b in aux.items()}}
+
+
+def phase_long_context(torch, K, log, card):
+    """Phase 10: 10a-10d in a fresh NCCL process group."""
+    import chainermn_tpu_torch as cmn
+
+    t0 = time.perf_counter()
+    comm = cmn.create_communicator("xla_ici", device="cuda")
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError("expected NCCL")
+    out = {"card": card,
+           "example": phase_lc_example(torch, K, log, card, comm),
+           "sp": phase_sp_functions(torch, K, log, comm),
+           "vocab_parallel": phase_vocab_parallel(torch, log, comm),
+           "moe": phase_moe(torch, log, comm)}
+    torch.distributed.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 10: {out['wall_s']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1618,6 +1934,7 @@ def main(argv=None) -> int:
     imagenet = phase_imagenet(torch, log, card)
     model_parallel = phase_model_parallel(torch, log, card)
     pipeline = phase_pipeline(torch, log, card)
+    long_context = phase_long_context(torch, K, log, card)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -1638,6 +1955,7 @@ def main(argv=None) -> int:
     print(json.dumps({"imagenet": imagenet}), flush=True)
     print(json.dumps({"model_parallel": model_parallel}), flush=True)
     print(json.dumps({"pipeline": pipeline}), flush=True)
+    print(json.dumps({"long_context": long_context}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,15 @@ against all 12 layers on one card, with each layout's step time; and the
 parallel-convolution example across the cards against gloo, its step-0
 losses against one unsharded net on one card.
 
+The sequence-parallel tier over NCCL (one spawn of ``_torch_sp_worker``'s
+``lc_nccl`` across four cards, one ``lc_one_card`` on one card): the
+long-context example at phase 4's widths with S 32768 (8192 tokens a
+card), bf16, 3 steps, ``--dp 1`` with ``--sp ring``, ``zigzag``,
+``ulysses`` and ``zigzag --vocab-tp`` against ``--sp none`` on one card
+(the same seeded weights and batches), each layout's step time per rank;
+and ``moe_layer`` at four ranks with two experts a rank against the
+one-device oracle.
+
 Imports only torch, numpy and the port: on a host with two or more GPUs,
 ``python -m pytest --noconftest tests/test_torch_nccl_cuda.py -q``
 (up to 4 ranks).  With fewer GPUs every test skips.
@@ -44,6 +53,7 @@ import torch
 import _torch_dist_worker as mp_worker
 import _torch_dp_worker as worker
 import _torch_pp_worker as pp_worker
+import _torch_sp_worker as sp_worker
 
 JOIN_TIMEOUT_S = 600
 ZERO_TOL = dict(rtol=1e-5, atol=1e-6)    # allreduce and reduce-scatter may
@@ -485,3 +495,59 @@ def test_parallel_conv_across_cards(pp_cards, pp_gloo, pp_one_card):
         # channels and rank r's head.
         np.testing.assert_allclose(got["losses"][0],
                                    pp_one_card["pconv_step0"][r], rtol=1e-5)
+
+
+# The long-context example across four cards against one card: the same
+# weights and batches, but each layout's attention merges its blocks in
+# another order (the ring's dense fp32 blocks against the kernels' bf16
+# probabilities), and the loss is the mean of bf16 logits' cross-entropy,
+# whose log-normaliser rounds to bf16 (an ulp of 0.0625 at ln 32768):
+# losses within 1e-2 relative.
+LC_RTOL = 1e-2
+MOE_TOL = dict(rtol=2e-5, atol=2e-5)     # fp32, as the gloo tests
+
+
+@pytest.fixture(scope="module")
+def lc_cards(tmp_path_factory):
+    return sp_worker.spawn("lc_nccl", _four(),
+                           tmp_path_factory.mktemp("lc_cards"),
+                           timeout_s=JOIN_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def lc_one_card(lc_cards, tmp_path_factory):
+    return sp_worker.spawn("lc_one_card", 1,
+                           tmp_path_factory.mktemp("lc_one_card"),
+                           timeout_s=JOIN_TIMEOUT_S)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(sp_worker.LC_CARDS))
+def test_long_context_across_cards_matches_one_card(lc_cards, lc_one_card,
+                                                    layout):
+    one = lc_one_card
+    assert len(one["losses"]) == 3 and np.all(np.isfinite(one["losses"]))
+    for out in lc_cards:
+        assert out["backend"] == "nccl"
+        run = out["lc"][layout]
+        assert run["losses"] == lc_cards[0]["lc"][layout]["losses"]
+        np.testing.assert_allclose(run["losses"], one["losses"],
+                                   rtol=LC_RTOL, err_msg=layout)
+    steps = [[round(x, 1) for x in o["lc"][layout]["step_ms"]]
+             for o in lc_cards]
+    print(f"long-context {layout} on four cards: losses "
+          f"{lc_cards[0]['lc'][layout]['losses']} vs one card "
+          f"{one['losses']}; step ms per rank {steps}; peak "
+          f"{[round(o['lc'][layout]['peak_gib'], 2) for o in lc_cards]} GiB;"
+          f" one card {[round(x, 1) for x in one['step_ms']]} ms, "
+          f"{one['peak_gib']:.2f} GiB")
+
+
+@pytest.mark.cuda
+def test_moe_across_cards_matches_oracle(lc_cards):
+    for r, out in enumerate(lc_cards):
+        got = out["moe"]
+        np.testing.assert_allclose(np.asarray(got["y"]),
+                                   np.asarray(got["oracle"]),
+                                   err_msg=f"rank {r}", **MOE_TOL)
+        assert 0.0 <= got["aux"]["dropped_fraction"] <= 1.0
