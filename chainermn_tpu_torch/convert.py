@@ -66,6 +66,11 @@ which :func:`vocab_shard` takes from the full ``embed/embedding`` (or
 ``embed.weight``).
 
 Every move is a reshape or a transpose, so each round trip is bit-exact.
+
+The same moves carry sharding specs: :func:`flax_spec_to_torch` maps the
+reference's ``PartitionSpec`` on a flax leaf onto the spec of the port
+parameter it becomes (a merged ``(h, dh)`` pair takes whichever entry
+shards).
 """
 
 from __future__ import annotations
@@ -496,3 +501,51 @@ def vocab_shard(table, rank: int, n: int):
         raise ValueError(f"vocab {V} does not split into {n} shards")
     v = V // n
     return table[rank * v:(rank + 1) * v]
+
+
+def _leaf_kind(path: str, ndim: int) -> str:
+    """The layout move of flax leaf ``path`` (``/``-joined) of rank
+    ``ndim``: ``out`` ((h, dh, D) -> (D, h dh)), ``qkv`` ((D, h, dh) ->
+    (h dh, D)), ``conv`` (HWIO -> OIHW), ``dense`` ((in, out) -> (out,
+    in); a GRU gate's block of ``weight_ih``/``weight_hh``) or ``same``."""
+    parts = path.split("/")
+    if parts[-1] != "kernel":
+        return "same"
+    if ndim == 3:
+        return "out" if len(parts) > 1 and parts[-2] == "out" else "qkv"
+    return {4: "conv", 2: "dense"}.get(ndim, "same")
+
+
+def _merge(a, b):
+    entries = [x for e in (a, b) if e is not None
+               for x in (e if isinstance(e, tuple) else (e,))]
+    return None if not entries else entries[0] if len(entries) == 1 \
+        else tuple(entries)
+
+
+def flax_spec_to_torch(path: str, spec, ndim: int) -> tuple:
+    """The spec, one entry per dimension, of the port parameter that the
+    reference's flax leaf ``path`` (rank ``ndim``) maps onto, given the
+    reference's ``spec`` on that leaf (a ``PartitionSpec`` or any
+    sequence of entries; missing trailing entries replicate).
+
+    Transposes and permutations carry their entries along; the merged
+    ``(h, dh)`` dimension of an attention projection takes the entry of
+    whichever of the two shards (both: their tuple, ``h`` major).  Where
+    the sharded one is ``h``, the port's block split of ``h dh`` gives
+    each rank the reference's heads; where it is ``dh`` (the ``fsdp``
+    plan's ``kernel_3d``), only each rank's share agrees.  A GRU gate's
+    kernel maps onto the spec of the stacked ``weight_ih``/``weight_hh``
+    it is a block of."""
+    e = list(spec) + [None] * (ndim - len(tuple(spec)))
+    kind = _leaf_kind(path, ndim)
+    if kind == "out":
+        return (e[2], _merge(e[0], e[1]))
+    if kind == "qkv":
+        return (_merge(e[1], e[2]), e[0])
+    if kind == "conv":
+        return tuple(e[i] for i in _TO_TORCH[4])
+    if kind == "dense":
+        return (e[1], e[0])
+    return tuple(e)
+

@@ -88,6 +88,12 @@ class LayerNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
+    #: The weights whose dimension packs whole heads of ``d_head`` rows, and
+    #: that dimension: what ``sharding.validate`` holds a head-sharding
+    #: plan to (query and kv head counts both divisible by the axis).
+    HEAD_DIMS = {"query.weight": 0, "key.weight": 0, "value.weight": 0,
+                 "out.weight": 1}
+
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16,
                  attention_fn: Optional[Callable] = None,
                  decode: bool = False, n_kv_heads: Optional[int] = None,

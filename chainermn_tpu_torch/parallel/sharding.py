@@ -21,12 +21,36 @@ written out in both directions, as the reference's ``custom_vjp``s are:
   per chunk, and sums ``dh`` over the ranks in the backward.
 
 Every rank of the communicator calls each function, and each takes the
-result into its backward.  The reference's ``transformer_param_spec``
-and ``make_gspmd_train_step`` (XLA's sharding annotations) are not
-here.
+result into its backward.
+
+The GSPMD half (the reference's ``transformer_param_spec`` and
+``make_gspmd_train_step``) runs on DTensor: a
+``torch.distributed.device_mesh.DeviceMesh`` with named dimensions plays
+the reference's ``Mesh``, a plan's specs become ``Shard``/``Replicate``
+placements, and DTensor's sharding propagation inserts the collectives
+XLA inserts from the annotations (``Partial`` → ``Replicate`` is the
+all-reduce, ``Partial`` → ``Shard`` the reduce-scatter).  Three things
+XLA does that DTensor does not are written out here:
+
+* every submodule's output is pinned to the batch layout (dim 0 over
+  the data axis, replicated over the others).  DTensor's per-op choice
+  would otherwise reduce-scatter a row-parallel output over ``model``
+  and then gather the next layer's weights, turning tensor parallelism
+  into weight gathering;
+* the hand kernels are opaque to DTensor: :func:`local_heads` runs an
+  attention function on each rank's local heads (and batch rows)
+  through ``local_map``, and :func:`batch_mean` runs a per-row mean
+  loss (the fused CE) on each data shard with whole weights;
+* the optimizer runs at the moment placement: each gradient is
+  redistributed there (an all-reduce, or a reduce-scatter into the
+  ``zero`` plan's shards) and the updated shards are gathered back to
+  the parameter placement where the two differ.
 """
 
 from __future__ import annotations
+
+import re
+from collections.abc import Mapping
 
 import torch
 
@@ -164,3 +188,324 @@ def vocab_parallel_cross_entropy(hidden, embedding_shard, labels, comm, *,
     loss_sum, n_valid = _VocabParallelCESum.apply(h2, embedding_shard, l2,
                                                   comm, int(chunk))
     return loss_sum / n_valid.clamp_min(1.0)
+
+
+
+# ---------------------------------------------------------------------------
+# GSPMD: plan-driven placement over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def build_device_mesh(comm, mesh_shape, mesh_dim_names=("data", "model"),
+                      device="cuda"):
+    """A ``DeviceMesh`` over the world of ``comm`` (a communicator of
+    :func:`~chainermn_tpu_torch.create_communicator`), ranks laid out
+    row-major over ``mesh_shape`` with ``mesh_dim_names``.  ``device``
+    (default ``"cuda"``) must be ``"cpu"`` explicitly to build a CPU mesh
+    (gloo); a CUDA mesh without a card raises."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from .._device import resolve_device
+
+    dev = resolve_device(device)
+    n = 1
+    for d in mesh_shape:
+        n *= int(d)
+    world = torch.distributed.get_world_size()
+    if comm.size != world or n != world:
+        raise ValueError(
+            f"mesh {tuple(mesh_shape)} ({n} ranks) must cover the "
+            f"communicator's world of {comm.size} (process group "
+            f"{world})"
+        )
+    return init_device_mesh(dev.type, tuple(int(d) for d in mesh_shape),
+                            mesh_dim_names=tuple(mesh_dim_names))
+
+
+def transformer_param_spec(module, model_axis: str = "model"):
+    """``{parameter name: PartitionSpec}`` for the transformer/ViT families
+    of :mod:`chainermn_tpu_torch.models`: attention heads and MLP hidden
+    sharded over ``model_axis``, everything else replicated — the shim
+    over registry plan ``"tp"``, leaf for leaf.
+
+    A module whose names match none of the rules would replicate
+    everything, so a spec that shards NOTHING raises."""
+    from ..sharding import get_plan
+    from ..sharding.plan import P
+
+    def rename(spec):
+        return P(*((model_axis if e == "model" else e) for e in spec))
+
+    spec = {n: rename(s) for n, s in get_plan("tp").resolve(module).items()}
+    if not any(any(e is not None for e in s) for s in spec.values()):
+        raise ValueError(
+            "transformer_param_spec matched NO shardable parameters — "
+            "tensor parallelism would silently do nothing.  The rules "
+            "key on this package's layer names (query/key/value/out, "
+            "wi/wo); for a model with different naming, write the "
+            "name → PartitionSpec mapping by hand and pass it to "
+            "make_gspmd_train_step directly."
+        )
+    return spec
+
+
+def _batch_placements(mesh, data_axis):
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if n == data_axis else Replicate()
+            for n in mesh.mesh_dim_names]
+
+
+def _constrain(x, mesh, placements):
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and x.ndim >= 1 \
+            and tuple(x.placements) != tuple(placements):
+        return x.redistribute(mesh, placements)
+    if isinstance(x, tuple):
+        return tuple(_constrain(y, mesh, placements) for y in x)
+    return x
+
+
+def local_heads(fn, mesh):
+    """Wrap an ``attention_fn(q, k, v, mask)`` (``(B, S, H, D)`` inputs)
+    so that, given DTensors, it runs ``fn`` on each rank's local batch
+    rows and heads through ``local_map``: a placement that shards the
+    batch (dim 0) or the heads (dim 2) is kept, any other becomes
+    ``Replicate()``.  Plain tensors pass straight to ``fn``.  This is how
+    the hand kernels, opaque to DTensor, run under the GSPMD step."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    def wrapped(q, k, v, mask=None):
+        if not isinstance(q, DTensor):
+            return fn(q, k, v, mask)
+        pl = [p if isinstance(p, Shard) and p.dim % q.ndim in (0, 2)
+              else Replicate() for p in q.placements]
+        run = local_map(lambda a, b, c: fn(a, b, c, mask),
+                        out_placements=pl, in_placements=(pl, pl, pl),
+                        in_grad_placements=(pl, pl, pl), device_mesh=mesh,
+                        redistribute_inputs=True)
+        return run(q, k, v)
+
+    return wrapped
+
+
+def batch_mean(fn, batch, weights=(), *, data_axis="data"):
+    """The global mean of a per-row mean loss under the GSPMD step:
+    ``fn(*batch, *weights)`` runs through ``local_map`` on each data
+    shard's rows of the ``batch`` DTensors (dim 0 over ``data_axis``,
+    replicated over the other mesh dimensions) with whole ``weights``
+    (redistributed to ``Replicate()``; their gradients are partial sums
+    over the data shards), and the shards' means are averaged with one
+    all-reduce.  The shards weigh equally: with ignored rows (negative
+    labels) the result is the mean of the shards' means.  This is how
+    the fused cross-entropy, opaque to DTensor, runs under the step."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = batch[0].device_mesh
+    names = mesh.mesh_dim_names
+    n_data = mesh.size(names.index(data_axis))
+    rows = _batch_placements(mesh, data_axis)
+    whole = [Replicate()] * len(names)
+    grads = [Partial() if n == data_axis else Replicate() for n in names]
+    run = local_map(
+        lambda *a: fn(*a) / n_data,
+        out_placements=[Partial() if n == data_axis else Replicate()
+                        for n in names],
+        in_placements=(rows,) * len(batch) + (whole,) * len(weights),
+        in_grad_placements=(rows,) * len(batch) + (grads,) * len(weights),
+        device_mesh=mesh, redistribute_inputs=True,
+    )
+    return run(*batch, *weights).redistribute(mesh, whole)
+
+
+def lm_loss(chunk=None, data_axis="data"):
+    """``loss_fn(model, (tokens, labels))`` for a ``TransformerLM`` under
+    :func:`make_gspmd_train_step`: the final-norm hidden states through
+    the fused cross-entropy against the tied table (gathered whole under
+    ``fsdp``), per data shard (:func:`batch_mean`)."""
+    from ..ops.fused_ce import fused_cross_entropy
+
+    def ce(h, labels, table):
+        return fused_cross_entropy(h, table, labels, chunk=chunk)
+
+    def loss_fn(model, batch):
+        tokens, labels = batch
+        h = model(tokens, return_hidden=True)
+        return batch_mean(ce, (h, labels), (model.embed.weight,),
+                          data_axis=data_axis)
+
+    return loss_fn
+
+
+def _as_plan(param_spec):
+    from ..sharding import ShardingPlan, get_plan
+    from ..sharding.plan import PartitionSpec, PlanRule, spec_axes
+
+    if isinstance(param_spec, str):
+        return get_plan(param_spec)
+    if isinstance(param_spec, ShardingPlan):
+        return param_spec
+    if isinstance(param_spec, Mapping):
+        rules = tuple(PlanRule(name, f"^{re.escape(name)}$",
+                               PartitionSpec(*spec))
+                      for name, spec in param_spec.items())
+        axes = tuple(dict.fromkeys(a for r in rules for a in spec_axes(r.spec)))
+        return ShardingPlan("<spec tree>", rules, axes=axes)
+    raise TypeError(
+        "param_spec must be a ShardingPlan, a registry plan name or a "
+        f"{{parameter name: PartitionSpec}} mapping, not "
+        f"{type(param_spec).__name__}"
+    )
+
+
+def _owners(model, name_of):
+    """``{id(param): [(module, attribute)]}``: every place a parameter is
+    registered (tied weights have several)."""
+    owners = {}
+    for _, mod in model.named_modules(remove_duplicate=False):
+        for attr, p in mod._parameters.items():
+            if p is not None and id(p) in name_of:
+                owners.setdefault(id(p), []).append((mod, attr))
+    return owners
+
+
+def make_gspmd_train_step(model, loss_fn, optimizer, mesh, param_spec,
+                          data_axis: str = "data"):
+    """Build a dp×tp (or fsdp, zero, ...) train step via sharding
+    placement on a ``DeviceMesh`` — the port of the reference's
+    ``make_gspmd_train_step``.
+
+    ``model``: an ``nn.Module`` holding plain parameters, the same on
+    every rank.  ``loss_fn(model, batch) -> loss`` runs on the module
+    with DTensor parameters and a DTensor batch (``lm_loss`` builds one
+    for ``TransformerLM``; plain tensors the module makes, such as its
+    position table, count as replicated).  ``optimizer``: a factory from a
+    list of parameters to a ``torch.optim`` optimizer.  ``param_spec``: a
+    :class:`~chainermn_tpu_torch.sharding.ShardingPlan`, a registry plan
+    name (``"tp"``, ``"dp_tp"``, ``"fsdp"``, ``"zero"``, ...) or a
+    ``{parameter name: PartitionSpec}`` mapping.  A plan's axes must be
+    dimensions of ``mesh``, and so must ``data_axis``.
+
+    Returns ``(step, shard_fn)``.  ``shard_fn(opt_state=None)`` replaces
+    each parameter with a DTensor at its plan placement, wraps every
+    attention module's ``attention_fn`` in :func:`local_heads`, pins each
+    submodule's output to the batch layout, and builds the optimizer over
+    the parameters at their MOMENT placement (the plan's
+    ``moment_rules``; a separate shard only where it differs), loading
+    ``opt_state`` (a ``state_dict()`` of an optimizer over the unsharded
+    module) with each moment placed by its parameter's name; it returns
+    ``(model, optimizer)``.  ``step(batch)`` takes the global batch (a
+    tensor or a tuple of tensors, dim 0 the batch, the same on every
+    rank), places it dim 0 over ``data_axis``, runs forward and backward,
+    redistributes every gradient to its moment placement (all-reduce or
+    reduce-scatter), steps the optimizer, gathers updated shards back to
+    the parameter placement, and returns the loss (a plain 0-d tensor)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ..models.transformer import MultiHeadAttention
+    from ..sharding.plan import moment_entries, placements_for
+
+    plan = _as_plan(param_spec)
+    names = tuple(mesh.mesh_dim_names or ())
+    missing = set(plan.axes) - set(names)
+    if missing:
+        raise ValueError(
+            f"sharding plan {plan.name!r} shards over axes "
+            f"{sorted(missing)} the mesh lacks (mesh axes: {names})"
+        )
+    if data_axis not in names:
+        raise ValueError(f"data_axis {data_axis!r} is not a dimension of "
+                         f"the mesh {names}")
+    n_data = mesh.size(names.index(data_axis))
+    batch_pl = _batch_placements(mesh, data_axis)
+    moment_rules = plan.moment_rules if plan.moment_rules is not None \
+        else plan.rules
+    state = {}
+
+    def shard_fn(opt_state=None):
+        if state:
+            raise RuntimeError("shard_fn already placed this model")
+        named = list(model.named_parameters())
+        name_of = {id(p): n for n, p in named}
+        owners = _owners(model, name_of)
+        entries, opt_params = [], []
+        for name, p in named:
+            shape = tuple(p.shape)
+            fwd_pl = placements_for(plan.spec_for(name, shape), names)
+            mom_pl = placements_for(
+                plan.spec_for(name, shape, moment_rules), names)
+            dt = torch.nn.Parameter(
+                distribute_tensor(p.detach(), mesh, fwd_pl),
+                requires_grad=p.requires_grad)
+            for mod, attr in owners[id(p)]:
+                mod._parameters[attr] = dt
+            if mom_pl == fwd_pl:
+                master = dt
+            else:
+                master = torch.nn.Parameter(
+                    dt.detach().redistribute(mesh, mom_pl),
+                    requires_grad=p.requires_grad)
+            entries.append((name, dt, master, fwd_pl, mom_pl))
+            opt_params.append(master)
+        opt = optimizer(opt_params)
+        if opt_state is not None:
+            by_name = {n: i for i, (n, *_) in enumerate(entries)}
+            placed = {"param_groups": opt_state["param_groups"], "state": {}}
+            for name, st in moment_entries(opt_state, [n for n, _ in named]):
+                mom_pl = entries[by_name[name]][4]
+                placed["state"][by_name[name]] = {
+                    k: (distribute_tensor(v, mesh, mom_pl)
+                        if torch.is_tensor(v) and v.ndim else v)
+                    for k, v in st.items()}
+            opt.load_state_dict(placed)
+        for m in model.modules():
+            if isinstance(m, MultiHeadAttention) and m.attention_fn is not None:
+                m.attention_fn = local_heads(m.attention_fn, mesh)
+            m.register_forward_hook(
+                lambda mod, inp, out: _constrain(out, mesh, batch_pl))
+        state.update(opt=opt, entries=entries)
+        return model, opt
+
+    def place(x):
+        if not torch.is_tensor(x):
+            return x
+        if x.shape[0] % n_data:
+            raise ValueError(f"global batch {x.shape[0]} does not divide "
+                             f"over {n_data} data shards")
+        rows = x.shape[0] // n_data
+        c = mesh.get_local_rank(data_axis)
+        local = x[c * rows:(c + 1) * rows].to(mesh.device_type)
+        return DTensor.from_local(local, mesh, batch_pl, run_check=False)
+
+    def step(batch):
+        if "opt" not in state:
+            raise RuntimeError(
+                "gspmd step called before shard_fn: call shard_fn() once to "
+                "resolve the plan, place the parameters and build the "
+                "optimizer"
+            )
+        opt, entries = state["opt"], state["entries"]
+        batch = tuple(map(place, batch)) if isinstance(batch, (tuple, list)) \
+            else place(batch)
+        with implicit_replication():
+            loss = loss_fn(model, batch)
+            loss.backward()
+        for _, p, master, _, mom_pl in entries:
+            if p.grad is None:
+                continue
+            g = p.grad.redistribute(mesh, mom_pl)
+            p.grad = None
+            master.grad = g
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for _, p, master, fwd_pl, _ in entries:
+                if master is not p:
+                    p.copy_(master.redistribute(mesh, fwd_pl))
+        return loss.detach().full_tensor()
+
+    return step, shard_fn

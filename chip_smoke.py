@@ -100,12 +100,24 @@ of which fails the run when wrong:
    D 2048) against ``F.embedding`` + ``fused_cross_entropy``; (d)
    ``moe_layer`` with 8 experts on the card, top-2, capacity factor
    1.25, T 8192, D 2048, expert d_ff 8192, bf16, against
-   ``dense_moe_oracle``, with its times.
+   ``dense_moe_oracle``, with its times;
+11. the GSPMD step (``parallel.sharding.make_gspmd_train_step``, DTensor
+   over a 1 x 1 ``("data", "model")`` ``DeviceMesh``) in a fresh process
+   group, on phase 4's model, data, seed and AdamW: (a) plan ``dp_tp``
+   for 5 steps, the losses within 1e-4 of phase 4's (bitwise equality
+   reported), each flash kernel launched 8 times a step on the local
+   heads, the median step and the host's time to return from a step
+   beside phase 4's, one profiled step's idle share; (b) plans ``fsdp``
+   and ``zero`` for 3 steps each under the same loss limit, each step
+   time recorded; (c) ``python -m chainermn_tpu_torch.tools.shardplan
+   --lint --format json`` over the nine models, equal to
+   ``tests/golden/torch_shardplan_lint.json``.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 ``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
 ``{"model_parallel": ...}``, a JSON line ``{"pipeline": ...}``, a JSON
-line ``{"long_context": ...}``, the card's ``name, power.limit`` line, a
+line ``{"long_context": ...}``, a JSON line ``{"gspmd": ...}``, the card's
+``name, power.limit`` line, a
 JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -116,6 +128,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -377,11 +390,12 @@ def phase_train(torch, K, log, n_warm, n_timed):
     V = FULL["vocab"]
     K.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, times, host = [], [], []
     for i in range(n_warm + n_timed):
         torch.cuda.synchronize()
         t = time.perf_counter()
         loss = step((tokens, labels))
+        host.append(time.perf_counter() - t)
         lv = loss.item()                  # synchronises
         times.append(time.perf_counter() - t)
         losses.append(lv)
@@ -404,11 +418,13 @@ def phase_train(torch, K, log, n_warm, n_timed):
     tok_s = n_tokens / med
     log(f"median step {med * 1e3:.1f} ms, {tok_s:.0f} tokens/s, peak "
         f"memory {peak / 2**30:.2f} GiB, losses {losses}")
-    profile_step(torch, lambda: step((tokens, labels)), log)
+    host_ms = sorted(host[n_warm:])[len(timed) // 2] * 1e3
+    wall, busy, _ = profile_step(torch, lambda: step((tokens, labels)), log)
     torch.distributed.destroy_process_group()
     return {"step_ms": med * 1e3, "tokens_per_s": tok_s,
             "peak_mem_gib": peak / 2**30, "launches": launches,
-            "steps": steps, "losses": losses}
+            "steps": steps, "losses": losses, "host_ms": host_ms,
+            "idle_share": 1 - busy / wall}
 
 
 def kernel_kind(name):
@@ -1878,6 +1894,136 @@ def phase_long_context(torch, K, log, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the GSPMD step
+# ---------------------------------------------------------------------------
+
+GSPMD_STEPS = 5          # (a) plan dp_tp; times: the median of steps 1-4
+GSPMD_PLAN_STEPS = 3     # (b) plans fsdp and zero; of steps 1-2
+LINT_GOLDEN = os.path.join("tests", "golden", "torch_shardplan_lint.json")
+
+
+def run_gspmd(torch, K, log, mesh, plan, steps, want):
+    """Phase 4's model, data, seed and AdamW through
+    ``make_gspmd_train_step`` under ``plan``: ``steps`` steps with every
+    kernel launch counted, the losses against phase 4's ``want``."""
+    import numpy as np
+
+    from chainermn_tpu_torch.models.transformer import TransformerLM
+    from chainermn_tpu_torch.ops import make_flash_attention_fn
+    from chainermn_tpu_torch.parallel.sharding import (lm_loss,
+                                                       make_gspmd_train_step)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = TransformerLM(
+        vocab=FULL["vocab"], d_model=FULL["d_model"],
+        n_heads=FULL["n_heads"], d_ff=FULL["d_ff"],
+        n_layers=FULL["n_layers"], max_len=FULL["seq"],
+        dtype=torch.bfloat16, attention_fn=make_flash_attention_fn(causal=True),
+        device="cuda", seed=0,
+    )
+    step, shard_fn = make_gspmd_train_step(
+        model, lm_loss(FULL["ce_chunk"]),
+        lambda ps: torch.optim.AdamW(ps, lr=3e-4, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=0.1),
+        mesh, plan)
+    shard_fn()
+    rng = np.random.RandomState(0)
+    B, S, V = FULL["batch"], FULL["seq"], FULL["vocab"]
+    tokens = torch.from_numpy(rng.randint(0, V, size=(B, S))).cuda()
+    labels = torch.from_numpy(rng.randint(0, V, size=(B, S))).cuda()
+    setup = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times, host = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step((tokens, labels))
+        host.append(time.perf_counter() - t)
+        losses.append(loss.item())
+        times.append(time.perf_counter() - t)
+        log(f"gspmd {plan} step {i}: loss {losses[-1]:.5f} "
+            f"{times[-1] * 1e3:.1f} ms (host returned after "
+            f"{host[-1] * 1e3:.1f} ms)")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times[1:]) * 1e3
+    host_ms = statistics.median(host[1:]) * 1e3
+    diff = max(abs(a - b) for a, b in zip(losses, want))
+    out = {"plan": plan, "losses": losses, "phase4_losses": want,
+           "max_diff": diff, "bitwise": losses == want, "step_ms": med,
+           "host_ms": host_ms, "peak_gib": peak, "launches": launches,
+           "setup_s": setup, "tokens_per_s": B * S / med * 1e3}
+    log(f"gspmd {plan}: launches {launches} over {steps} steps; losses "
+        f"{losses} against phase 4's {want}: max diff {diff:.3g}, bitwise "
+        f"{out['bitwise']}; median step {med:.1f} ms, host returned after "
+        f"{host_ms:.1f} ms, peak {peak:.2f} GiB, set-up {setup:.1f} s")
+    failed = [f"{name} launched {launches[name]} times, not "
+              f"{FULL['n_layers'] * steps}" for name in KERNELS
+              if launches[name] != FULL["n_layers"] * steps]
+    if not diff <= LM_ZERO3_ATOL:
+        failed.append(f"losses {diff} from phase 4's")
+    if failed:
+        raise AssertionError(f"phase 11 {plan}: " + "; ".join(failed))
+    return out, (lambda: step((tokens, labels)))
+
+
+def phase_gspmd(torch, K, log, card, train, repo):
+    """Phase 11: (a) ``dp_tp``, (b) ``fsdp`` and ``zero`` on a 1 x 1
+    mesh, (c) the shardplan lint against its golden."""
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.parallel.sharding import build_device_mesh
+
+    t0 = time.perf_counter()
+    comm = cmn.create_communicator("pure_nccl", device="cuda")
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError("expected NCCL")
+    mesh = build_device_mesh(comm, (1, 1), ("data", "model"), device="cuda")
+    out = {"card": card, "mesh": "1x1 (data, model)"}
+    a, run_step = run_gspmd(torch, K, log, mesh, "dp_tp", GSPMD_STEPS,
+                            train["losses"][:GSPMD_STEPS])
+    wall, busy, kinds = profile_step(torch, run_step, log,
+                                     what="gspmd dp_tp step")
+    a.update(profile={"wall_ms": wall, "busy_ms": busy,
+                      "idle_share": 1 - busy / wall},
+             phase4={k: train[k] for k in ("step_ms", "host_ms",
+                                           "idle_share")})
+    log(f"gspmd dp_tp against phase 4: median step {a['step_ms']:.1f} ms vs "
+        f"{train['step_ms']:.1f}; host returned after {a['host_ms']:.1f} ms "
+        f"vs {train['host_ms']:.1f}; idle share {1 - busy / wall:.3f} vs "
+        f"{train['idle_share']:.3f}")
+    out["dp_tp"] = a
+    del run_step
+    for plan in ("fsdp", "zero"):
+        out[plan], _ = run_gspmd(torch, K, log, mesh, plan, GSPMD_PLAN_STEPS,
+                                 train["losses"][:GSPMD_PLAN_STEPS])
+    torch.distributed.destroy_process_group()
+    t = time.perf_counter()
+    lint = subprocess.run(
+        [sys.executable, "-m", "chainermn_tpu_torch.tools.shardplan",
+         "--lint", "--format", "json"],
+        capture_output=True, text=True, timeout=300, cwd=repo)
+    with open(os.path.join(repo, LINT_GOLDEN)) as f:
+        golden = json.load(f)
+    same = lint.returncode == 0 and json.loads(lint.stdout) == golden
+    out["lint"] = {"rc": lint.returncode, "equal_to_golden": same,
+                   "targets": len(golden["targets"]),
+                   "seconds": time.perf_counter() - t}
+    log(f"shardplan --lint: rc {lint.returncode}, {len(golden['targets'])} "
+        f"model x plan targets, equal to {LINT_GOLDEN}: {same} "
+        f"({out['lint']['seconds']:.1f} s)")
+    if not same:
+        raise AssertionError("phase 11c: shardplan --lint differs from its "
+                             f"golden: {lint.stderr[-2000:]}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 11: {out['wall_s']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1935,6 +2081,7 @@ def main(argv=None) -> int:
     model_parallel = phase_model_parallel(torch, log, card)
     pipeline = phase_pipeline(torch, log, card)
     long_context = phase_long_context(torch, K, log, card)
+    gspmd = phase_gspmd(torch, K, log, card, train, repo)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -1956,6 +2103,7 @@ def main(argv=None) -> int:
     print(json.dumps({"model_parallel": model_parallel}), flush=True)
     print(json.dumps({"pipeline": pipeline}), flush=True)
     print(json.dumps({"long_context": long_context}), flush=True)
+    print(json.dumps({"gspmd": gspmd}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,14 +62,17 @@ def reference_case(n: int, name: str) -> dict:
 
 @pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda n: f"{n}rank")
 def world(request, tmp_path_factory):
-    n = request.param
+    """One world of ``n`` ranks a module, running the cases of the kinds
+    its test module lists in ``SP_KINDS``."""
+    n, kinds = request.param, list(request.module.SP_KINDS)
     if n == 1:
         from chainermn_tpu_torch import create_communicator
 
         comm = create_communicator("naive", device="cpu")
-        ranks = [worker.sp_all(comm)]
+        ranks = [worker.sp_all(comm, kinds)]
     else:
-        ranks = worker.spawn("sp", n, tmp_path_factory.mktemp(f"sp{n}"))
+        ranks = worker.spawn("sp", n, tmp_path_factory.mktemp(f"sp{n}"),
+                             kinds=kinds)
     return n, ranks
 
 

@@ -160,15 +160,20 @@ def gather_kv_case(comm):
     return {"k": _np(kf), "v": _np(vf), "gk": _np(gk), "gv": _np(gv)}
 
 
-def sp_all(comm):
-    out = {name: sp_case(comm, name) for name in SP_CASES}
-    out["errors"] = sp_errors(comm)
-    out["gather_kv"] = gather_kv_case(comm)
+def sp_all(comm, kinds=None):
+    """Every case of ``SP_CASES`` whose kind is in ``kinds`` (all when
+    None), with Ulysses' refusals and ``gather_sequence_kv`` unless
+    ``kinds`` leaves out ``ulysses``: a test file runs only its own."""
+    out = {name: sp_case(comm, name) for name, c in SP_CASES.items()
+           if kinds is None or c["kind"] in kinds}
+    if kinds is None or "ulysses" in kinds:
+        out["errors"] = sp_errors(comm)
+        out["gather_kv"] = gather_kv_case(comm)
     return out
 
 
 def _sp(rank, size, args):
-    return sp_all(_naive_cpu())
+    return sp_all(_naive_cpu(), args.get("kinds"))
 
 
 # -- vocab parallelism ------------------------------------------------------------

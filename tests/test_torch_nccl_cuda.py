@@ -38,6 +38,15 @@ card), bf16, 3 steps, ``--dp 1`` with ``--sp ring``, ``zigzag``,
 and ``moe_layer`` at four ranks with two experts a rank against the
 one-device oracle.
 
+The GSPMD step over NCCL (one spawn of ``_torch_gspmd_worker``'s
+``gspmd_cards`` across four cards, one ``gspmd_one_card`` on one card):
+phase 4's model (vocab 32768, d_model 2048, 16 heads, d_ff 8192, 8
+layers, S 4096, global batch 4, bf16, AdamW) under plans ``tp`` (model =
+4), ``dp_tp`` (2 x 2), ``fsdp`` and ``zero`` (data = 4), 3 steps each,
+against one card's unsharded step: losses within 1e-2 relative, each
+plan's step per rank, peak memory and bytes of parameters and moments a
+card.
+
 Imports only torch, numpy and the port: on a host with two or more GPUs,
 ``python -m pytest --noconftest tests/test_torch_nccl_cuda.py -q``
 (up to 4 ranks).  With fewer GPUs every test skips.
@@ -52,6 +61,7 @@ import torch
 
 import _torch_dist_worker as mp_worker
 import _torch_dp_worker as worker
+import _torch_gspmd_worker as gspmd_worker
 import _torch_pp_worker as pp_worker
 import _torch_sp_worker as sp_worker
 
@@ -551,3 +561,61 @@ def test_moe_across_cards_matches_oracle(lc_cards):
                                    np.asarray(got["oracle"]),
                                    err_msg=f"rank {r}", **MOE_TOL)
         assert 0.0 <= got["aux"]["dropped_fraction"] <= 1.0
+
+
+# The GSPMD step's plans across four cards against one card's unsharded
+# step: the same weights and batches, but the bf16 products are summed in
+# other orders (row- and column-parallel GEMMs, reduce-scattered
+# gradients) and the CE's log-normaliser rounds to bf16: losses within
+# 1e-2 relative, the standard of the long-context cases.
+GSPMD_RTOL = 1e-2
+
+
+@pytest.fixture(scope="module")
+def gspmd_cards(tmp_path_factory):
+    return gspmd_worker.spawn("gspmd_cards", _four(),
+                              tmp_path_factory.mktemp("gspmd_cards"),
+                              timeout_s=JOIN_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def gspmd_one_card(gspmd_cards, tmp_path_factory):
+    return gspmd_worker.spawn("gspmd_one_card", 1,
+                              tmp_path_factory.mktemp("gspmd_one_card"),
+                              timeout_s=JOIN_TIMEOUT_S)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", sorted(gspmd_worker.GSPMD_CARDS))
+def test_gspmd_plans_across_cards_match_one_card(gspmd_cards, gspmd_one_card,
+                                                 plan):
+    one = gspmd_one_card
+    assert len(one["losses"]) == 3 and np.all(np.isfinite(one["losses"]))
+    for out in gspmd_cards:
+        assert out["backend"] == "nccl"
+        run = out["plans"][plan]
+        assert run["losses"] == gspmd_cards[0]["plans"][plan]["losses"]
+        np.testing.assert_allclose(run["losses"], one["losses"],
+                                   rtol=GSPMD_RTOL, err_msg=plan)
+    runs = [o["plans"][plan] for o in gspmd_cards]
+    print(f"gspmd {plan} on four cards: losses {runs[0]['losses']} vs one "
+          f"card {one['losses']}; step ms per rank "
+          f"{[[round(x, 1) for x in r['step_ms']] for r in runs]}; peak "
+          f"{[round(r['peak_gib'], 2) for r in runs]} GiB; parameters "
+          f"{[round(r['param_bytes'] / 2**30, 3) for r in runs]} GiB, "
+          f"moments {[round(r['moment_bytes'] / 2**30, 3) for r in runs]} "
+          f"GiB a card; one card {[round(x, 1) for x in one['step_ms']]} ms,"
+          f" {one['peak_gib']:.2f} GiB")
+    for who, prof in [(f"rank {r}", run["profile"])
+                      for r, run in enumerate(runs)] + [
+            ("one card", one["profile"])]:
+        kinds = ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+            prof["by_kind_ms"].items(), key=lambda kv: -kv[1]))
+        print(f"gspmd {plan} profiled step, {who}: wall "
+              f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
+              f"ms, idle share {prof['idle_share']:.3f}; by kind (ms): "
+              f"{kinds}")
+    if plan == "tp":
+        # the sharded weights and their moments take a quarter a card
+        full = gspmd_cards[0]["plans"]["zero"]["param_bytes"]
+        assert runs[0]["param_bytes"] < 0.4 * full

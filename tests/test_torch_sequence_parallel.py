@@ -39,6 +39,10 @@ from chainermn_tpu.parallel import ring_attention as jra
 from chainermn_tpu.parallel import ulysses as jul
 from chainermn_tpu_torch.parallel import ring_attention as tra
 
+#: The ``SP_CASES`` kinds this file's worlds run.
+SP_KINDS = ("ring", "ulysses")
+
+
 @pytest.mark.parametrize("name", sorted(
     name for name, c in worker.SP_CASES.items() if c["kind"] != "zigzag"))
 def test_matches_reference(world, name):

@@ -20,6 +20,10 @@ import _torch_sp_worker as worker
 from _sp_reference import check_case, world  # noqa: F401
 
 
+#: The ``SP_CASES`` kinds this file's worlds run.
+SP_KINDS = ("zigzag",)
+
+
 @pytest.mark.parametrize("name", sorted(
     name for name, c in worker.SP_CASES.items() if c["kind"] == "zigzag"))
 def test_matches_reference(world, name):
