@@ -20,3 +20,14 @@ def resolve_device(device="cuda") -> torch.device:
             "run on the CPU"
         )
     return dev
+
+
+def check_model_device(model_device: torch.device, device) -> torch.device:
+    """Resolve ``device`` and check that a model lives there (``cuda``
+    names any CUDA device; ``cuda:1`` that one).  Returns the model's
+    device."""
+    dev = resolve_device(device)
+    if model_device.type != dev.type or (
+            dev.index is not None and model_device.index != dev.index):
+        raise ValueError(f"the model lives on {model_device}, not {dev}")
+    return model_device

@@ -1,4 +1,4 @@
-"""Low-precision gradient wire — port of the gradient half of
+"""Low-precision gradient wire and int8 KV pages — port of
 ``chainermn_tpu/communicators/quant.py``.
 
 With ``comm_dtype=`` on a communicator, each packed gradient bucket is
@@ -27,6 +27,10 @@ Error bounds per element of the quantized mean against the fp32 mean,
 with ``A`` the global bucket amax and ``n`` the world size: int8
 ``A / (2 * floor(127 / n))``; fp8 ``A * (n + 1) / 16`` (loose by
 construction; it covers the int8 fallback too).
+
+The serving half (:func:`quantize_kv`, :func:`dequantize_kv`) stores KV
+pages as int8 with one fp32 scale per written token per KV head
+(``kv_dtype="int8"`` on the engine).
 """
 
 from __future__ import annotations
@@ -40,9 +44,15 @@ import torch
 #: Values: ``int8`` | ``fp8`` | ``none`` (explicit off).
 ENV_COMM_DTYPE = "CHAINERMN_TPU_COMM_DTYPE"
 
+#: Environment override for an unset engine ``kv_dtype``.
+ENV_KV_DTYPE = "CHAINERMN_TPU_KV_DTYPE"
+
 #: Canonical wire names accepted by ``comm_dtype=`` (plus ``"none"`` for
 #: an explicit off and ``None`` for "resolve the environment").
 COMM_DTYPE_CHOICES = ("int8", "fp8")
+
+#: Canonical KV cache storage dtypes accepted by ``kv_dtype=``.
+KV_DTYPE_CHOICES = ("int8",)
 
 _INT8_QMAX = 127.0
 
@@ -75,6 +85,23 @@ def canonical_comm_dtype(name: Any) -> Optional[str]:
     raise ValueError(
         f"unknown comm_dtype {name!r}; choose from "
         f"{COMM_DTYPE_CHOICES} (or 'none' to disable)"
+    )
+
+
+def canonical_kv_dtype(name: Any) -> Optional[str]:
+    """Normalize a ``kv_dtype`` spelling: ``None``/"none"/model-dtype
+    names mean "store pages at the model dtype" (off); ``"int8"`` turns
+    quantized pages on.  Unknown names raise."""
+    if name is None:
+        return None
+    key = str(name).strip().lower()
+    if key in ("", "none", "off", "bf16", "bfloat16", "float32", "fp32"):
+        return None
+    if key in ("int8", "s8"):
+        return "int8"
+    raise ValueError(
+        f"unknown kv_dtype {name!r}; choose from {KV_DTYPE_CHOICES} "
+        "(or 'none' to store pages at the model dtype)"
     )
 
 
@@ -164,3 +191,30 @@ def measure_comm_quant_error(comm, tensors) -> float:
         comm.comm_dtype = saved
     return max(float((a.float() - b.float()).abs().max())
                for a, b in zip(quantized, exact))
+
+
+# ----------------------------------------------------------------------
+# Serving KV half: per-token-per-head scales over d_head
+# ----------------------------------------------------------------------
+def quantize_kv(x: torch.Tensor):
+    """Quantize freshly projected K or V for int8 page storage.
+
+    ``x``: (B, T, Hkv, D).  Returns ``(q, scales)``: ``q`` int8 of the same
+    shape, ``scales`` fp32 (B, T, Hkv) — ``amax / 127`` per token per KV
+    head, 1 where the amax is 0.  ``torch.round`` rounds half to even, as
+    ``jnp.round`` does, so the payload equals the reference's bitwise."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / _INT8_QMAX, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -_INT8_QMAX,
+                    _INT8_QMAX).to(torch.int8)
+    return q, scale
+
+
+def dequantize_kv(q: torch.Tensor, scales: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Int8 pages (or a gathered context) back to ``dtype``: ``q`` (...,
+    Hkv, D) int8 times ``scales`` (..., Hkv) fp32 over the head dim.  A slot
+    never written holds zero payload and zero scale, so it dequantizes to
+    the zeros an unquantized cache gives."""
+    return (q.float() * scales[..., None]).to(dtype)

@@ -67,6 +67,13 @@ which :func:`vocab_shard` takes from the full ``embed/embedding`` (or
 
 Every move is a reshape or a transpose, so each round trip is bit-exact.
 
+The serving state crosses too: :func:`flax_cache_to_pages` maps the
+reference engine's flax ``cache`` collection (``layer_i`` →
+``MultiHeadAttention_0`` → ``k_pages``, ``v_pages`` and, with int8 pages,
+``k_scales``, ``v_scales``) onto the port engine's per-layer
+:class:`~chainermn_tpu_torch.models.transformer.PagedLayerCache` list
+(the same layouts, no reshape), and :func:`pages_to_flax_cache` back.
+
 The same moves carry sharding specs: :func:`flax_spec_to_torch` maps the
 reference's ``PartitionSpec`` on a flax leaf onto the spec of the port
 parameter it becomes (a merged ``(h, dh)`` pair takes whichever entry
@@ -549,3 +556,36 @@ def flax_spec_to_torch(path: str, spec, ndim: int) -> tuple:
         return (e[1], e[0])
     return tuple(e)
 
+
+
+def flax_cache_to_pages(cache, n_layers: int, device=None) -> list:
+    """The reference engine's flax ``cache`` collection (numpy or jax
+    leaves) -> one ``PagedLayerCache`` a layer on ``device``."""
+    from .models.transformer import PagedLayerCache
+
+    def leaf(x):
+        a = np.array(x)
+        if a.dtype.name == "bfloat16":      # numpy's view of jax's bf16
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(a)
+
+    out = []
+    for i in range(n_layers):
+        leaves = cache[f"layer_{i}"]["MultiHeadAttention_0"]
+        out.append(PagedLayerCache(**{
+            name: leaf(leaves[name]).to(device)
+            for name in PagedLayerCache.LEAVES if name in leaves}))
+    return out
+
+
+def pages_to_flax_cache(pages) -> dict:
+    """One ``PagedLayerCache`` a layer -> the flax ``cache`` collection
+    (numpy leaves; bf16 pages come back as their exact fp32 values, numpy
+    having no bf16: cast them back with ``jnp.asarray(x, jnp.bfloat16)``)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {f"layer_{i}": {"MultiHeadAttention_0": {
+        name: leaf(t) for name, t in c.leaves().items()}}
+        for i, c in enumerate(pages)}

@@ -24,13 +24,30 @@ Parameter layout: every projection is an ``nn.Linear`` (weight
 projection ~ N(0, 1/fan_in) (flax draws the projections from a truncated
 normal; parity tests load converted weights instead).
 
-The decode (KV cache), paged and sequence-parallel modes of the reference
-are later slices (ROADMAP A.6) and raise ``NotImplementedError``.
+The cache modes (the reference's flax ``cache`` collection):
+
+* ``decode=True`` — the dense KV cache of :func:`generate`: one token a
+  call, written at the running index of a :class:`DenseLayerCache`;
+* ``paged="prefill" | "decode" | "chunk"`` — the serving engine's paged KV
+  cache, one :class:`PagedLayerCache` of pages a layer, routed through
+  ``block_tables``/``seq_lens`` (:mod:`~chainermn_tpu_torch.ops.decode_attention`);
+  ``kv_dtype="int8"`` pages carry fp32 scales and each write records its
+  round-trip error (the reference's sown ``kv_quant_err``).
+
+Flax keeps the cache in a mutable collection of the module; here the
+caller owns the caches (:meth:`TransformerLM.init_paged_cache`,
+:meth:`TransformerLM.init_decode_cache`) and passes them to ``forward``,
+which updates them in place.  The reference builds a prefill, a decode and
+a chunk twin over one parameter tree; here ``forward(..., paged=mode)``
+picks the mode per call over the module's own parameters.  The
+sequence-parallel chunk prefill (``sp_axis``) is a later slice (ROADMAP
+A.6) and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -38,9 +55,106 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .._device import resolve_device
+from .._device import check_model_device, resolve_device
+from ..communicators.quant import dequantize_kv, quantize_kv
+from ..ops.decode_attention import (
+    _scale,
+    paged_attention_chunk,
+    paged_attention_decode,
+    write_chunk_pages,
+    write_prompt_pages,
+    write_token_pages,
+)
 
 _LATER = "is a later slice of the port (ROADMAP A.6)"
+PAGED_MODES = ("prefill", "decode", "chunk")
+
+
+@dataclasses.dataclass
+class PagedLayerCache:
+    """One layer's KV pages: ``k_pages``/``v_pages`` (N, page_size, Hkv,
+    D) in the compute dtype, or int8 with ``k_scales``/``v_scales`` (N,
+    page_size, Hkv) fp32.  A quantised write sets ``kv_quant_err`` (a 0-d
+    fp32 tensor, the max round-trip error of that write)."""
+
+    k_pages: torch.Tensor
+    v_pages: torch.Tensor
+    k_scales: Optional[torch.Tensor] = None
+    v_scales: Optional[torch.Tensor] = None
+    kv_quant_err: Optional[torch.Tensor] = None
+
+    LEAVES = ("k_pages", "v_pages", "k_scales", "v_scales")
+
+    @classmethod
+    def zeros(cls, page_count: int, page_size: int, n_kv: int, d_head: int,
+              dtype, kv_dtype: Optional[str] = None, device=None):
+        if page_count <= 0 or page_size <= 0:
+            raise ValueError("paged modes require page_count > 0 and "
+                             "page_size > 0")
+        _check_kv_dtype(kv_dtype)
+        shape = (page_count, page_size, n_kv, d_head)
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        if not kv_dtype:
+            return cls(zeros(shape, dtype), zeros(shape, dtype))
+        return cls(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                   zeros(shape[:3], torch.float32),
+                   zeros(shape[:3], torch.float32))
+
+    def leaves(self) -> dict:
+        """The page tensors by the reference's leaf names (every one is
+        indexed by page along dim 0)."""
+        return {n: getattr(self, n) for n in self.LEAVES
+                if getattr(self, n) is not None}
+
+
+@dataclasses.dataclass
+class DenseLayerCache:
+    """One layer's dense KV cache (``decode=True``): (B, cache_len, Hkv,
+    D) keys and values and the running write index."""
+
+    cached_key: torch.Tensor
+    cached_value: torch.Tensor
+    cache_index: int = 0
+
+
+def _check_kv_dtype(kv_dtype):
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+
+
+def _check_modes(decode, paged, attention_fn, sp_axis):
+    """The reference's refusals of the cache modes (construction and
+    per-call overrides alike)."""
+    if sp_axis is not None:
+        raise NotImplementedError(
+            f"sp_axis (sequence-parallel chunk prefill) {_LATER}")
+    if paged is None:
+        if decode and attention_fn is not None:
+            raise ValueError(
+                "decode=True is incompatible with attention_fn: the "
+                "pluggable adapters impose their own causality and ignore "
+                "the cache mask; build the model without attention_fn "
+                "for generate()"
+            )
+        return
+    if decode:
+        raise ValueError(
+            "paged and decode are mutually exclusive KV cache modes: the "
+            "dense cache keeps one index for the whole batch, pages keep "
+            "per-sequence lengths"
+        )
+    if attention_fn is not None:
+        raise ValueError(
+            "paged modes are incompatible with attention_fn: the pluggable "
+            "adapters ignore the cache mask and would attend to the wrong "
+            "page slots"
+        )
+    if paged not in PAGED_MODES:
+        raise ValueError(
+            f"paged must be 'prefill', 'decode' or 'chunk', got {paged!r}")
 
 
 def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
@@ -100,12 +214,8 @@ class MultiHeadAttention(nn.Module):
                  paged: Optional[str] = None, sp_axis: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if decode:
-            raise NotImplementedError(f"decode (KV cache) {_LATER}")
-        if paged is not None:
-            raise NotImplementedError(f"paged KV cache {_LATER}")
-        if sp_axis is not None:
-            raise NotImplementedError(f"sp_axis {_LATER}")
+        _check_modes(decode, paged, attention_fn, sp_axis)
+        self.decode, self.paged = decode, paged
         n_kv = n_kv_heads or n_heads
         if n_heads % n_kv:
             raise ValueError(
@@ -123,21 +233,45 @@ class MultiHeadAttention(nn.Module):
             for layer in (self.query, self.key, self.value, self.out):
                 _init_linear(layer, generator)
 
-    def forward(self, q_in, kv_in, mask=None):
+    def forward(self, q_in, kv_in, mask=None, *, cache=None,
+                block_tables=None, seq_lens=None, paged=None, decode=None):
+        """``cache``: this layer's :class:`PagedLayerCache` (paged modes) or
+        :class:`DenseLayerCache` (``decode``), updated in place.
+        ``paged``/``decode`` override the constructor's mode for this call
+        (a cache mode attends densely, ignoring ``attention_fn``);
+        ``block_tables``/``seq_lens`` route the paged modes (see
+        :mod:`~chainermn_tpu_torch.ops.decode_attention`): ``seq_lens`` is
+        the valid prompt length for ``prefill``, the context length before
+        the token for ``decode``, and each row's start position for
+        ``chunk``."""
+        paged = self.paged if paged is None else paged
+        decode = self.decode if decode is None else decode
+        cached = paged is not None or decode
+        if cached:
+            # A cache mode runs the dense path, as the reference's twins
+            # (built without attention_fn) do.
+            _check_modes(decode, paged, None, None)
+        attention_fn = None if cached else self.attention_fn
         B, Sq, _ = q_in.shape
         Sk = kv_in.shape[1]
         dt, H, Hk, dh = self.dtype, self.n_heads, self.n_kv, self.d_head
         q = _dense(q_in, self.query.weight, dt).view(B, Sq, H, dh)
         k = _dense(kv_in, self.key.weight, dt).view(B, Sk, Hk, dh)
         v = _dense(kv_in, self.value.weight, dt).view(B, Sk, Hk, dh)
-        if self.attention_fn is not None:
-            out = self.attention_fn(q, k, v, mask)
+        if paged is not None:
+            out = self._paged(paged, q, k, v, cache, block_tables, seq_lens)
+            if out is not None:
+                return _dense(out.reshape(B, Sq, H * dh), self.out.weight, dt)
+        elif decode:
+            k, v, mask = self._dense_cache(q, k, v, cache)
+        if attention_fn is not None:
+            out = attention_fn(q, k, v, mask)
         else:
             if Hk != H:
                 k = torch.repeat_interleave(k, H // Hk, dim=2)
                 v = torch.repeat_interleave(v, H // Hk, dim=2)
-            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / np.sqrt(dh))
-            logits = logits.float()
+            # The reference's numpy scale promotes the logits to fp32.
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * _scale(dh)
             if mask is not None:
                 logits = torch.where(
                     mask, logits,
@@ -146,6 +280,74 @@ class MultiHeadAttention(nn.Module):
             weights = torch.softmax(logits, dim=-1).to(dt)
             out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return _dense(out.reshape(B, Sq, H * dh), self.out.weight, dt)
+
+    def _paged(self, mode, q, k, v, cache, block_tables, seq_lens):
+        """Write this call's K/V into the pages and, for ``decode`` and
+        ``chunk``, attend over them; ``prefill`` returns ``None`` so the
+        dense causal path runs over the local K/V (the prompt is the whole
+        context, still in full precision)."""
+        if cache is None or block_tables is None or seq_lens is None:
+            raise ValueError("paged modes require a cache, block_tables "
+                             "and seq_lens")
+        quant = cache.k_scales is not None
+
+        def write_kv(writer, lens):
+            if not quant:
+                writer(cache.k_pages, k, block_tables, lens)
+                writer(cache.v_pages, v, block_tables, lens)
+                return
+            qk, k_sc = quantize_kv(k)
+            qv, v_sc = quantize_kv(v)
+            writer(cache.k_pages, qk, block_tables, lens)
+            writer(cache.v_pages, qv, block_tables, lens)
+            writer(cache.k_scales, k_sc, block_tables, lens)
+            writer(cache.v_scales, v_sc, block_tables, lens)
+            cache.kv_quant_err = torch.maximum(
+                (dequantize_kv(qk, k_sc, torch.float32) - k.float())
+                .abs().amax(),
+                (dequantize_kv(qv, v_sc, torch.float32) - v.float())
+                .abs().amax(),
+            )
+
+        scales = dict(k_scales=cache.k_scales, v_scales=cache.v_scales)
+        if mode == "prefill":
+            write_kv(write_prompt_pages, seq_lens)
+            return None
+        if mode == "chunk":
+            write_kv(write_chunk_pages, seq_lens)
+            return paged_attention_chunk(q, cache.k_pages, cache.v_pages,
+                                         block_tables, seq_lens, **scales)
+        if q.shape[1] != 1:
+            raise ValueError(
+                f"paged decode consumes exactly one token per call, got a "
+                f"length-{q.shape[1]} chunk"
+            )
+        write_kv(write_token_pages, seq_lens)
+        return paged_attention_decode(q, cache.k_pages, cache.v_pages,
+                                      block_tables,
+                                      torch.as_tensor(seq_lens) + 1,
+                                      **scales)
+
+    def _dense_cache(self, q, k, v, cache):
+        """``decode=True``: write the token at the running index and return
+        the whole cache with the positions past it masked."""
+        if cache is None:
+            raise ValueError("decode=True requires a DenseLayerCache")
+        if q.shape[1] != 1:
+            raise ValueError(
+                f"decode mode consumes exactly one token per call, got a "
+                f"length-{q.shape[1]} chunk; feed tokens one at a time, as "
+                f"generate() does"
+            )
+        ck, cv = cache.cached_key, cache.cached_value
+        L = ck.shape[1]
+        i = cache.cache_index
+        at = min(max(i, 0), L - 1)      # the reference's dynamic_update_slice
+        ck[:, at:at + 1] = k.to(ck.dtype)
+        cv[:, at:at + 1] = v.to(cv.dtype)
+        cache.cache_index = i + 1
+        mask = (torch.arange(L, device=ck.device) <= i)[None, None, None, :]
+        return ck, cv, mask
 
 
 class FeedForward(nn.Module):
@@ -170,19 +372,22 @@ class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  dtype=torch.bfloat16, attention_fn=None,
                  n_kv_heads: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 decode: bool = False, paged: Optional[str] = None):
         super().__init__()
         self.norm_0 = LayerNorm(d_model, dtype)
         self.attention = MultiHeadAttention(
-            d_model, n_heads, dtype, attention_fn, n_kv_heads=n_kv_heads,
-            generator=generator,
+            d_model, n_heads, dtype, attention_fn, decode=decode,
+            n_kv_heads=n_kv_heads, paged=paged, generator=generator,
         )
         self.norm_1 = LayerNorm(d_model, dtype)
         self.feed_forward = FeedForward(d_model, d_ff, dtype, generator)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, **cache_args):
+        """``cache_args``: ``cache``, ``block_tables``, ``seq_lens``,
+        ``paged``, ``decode`` for the attention's cache modes."""
         h = self.norm_0(x)
-        x = x + self.attention(h, h, mask)
+        x = x + self.attention(h, h, mask, **cache_args)
         return x + self.feed_forward(self.norm_1(x))
 
 
@@ -270,33 +475,39 @@ class TransformerLM(nn.Module):
     """Decoder-only LM with a tied embedding head.
 
     ``device`` defaults to ``"cuda"`` and raises when no CUDA device is
-    present; pass ``device="cpu"`` to run on the CPU."""
+    present; pass ``device="cpu"`` to run on the CPU.
+
+    ``decode``/``paged`` set the default cache mode of ``forward`` (see the
+    module docstring); ``page_count``, ``page_size`` and ``kv_dtype`` are
+    the default page geometry of :meth:`init_paged_cache`."""
 
     def __init__(self, vocab: int, d_model: int = 512, n_heads: int = 8,
                  d_ff: int = 2048, n_layers: int = 6, max_len: int = 2048,
                  dtype=torch.bfloat16, attention_fn: Optional[Callable] = None,
                  decode: bool = False, remat: bool = False,
                  n_kv_heads: Optional[int] = None,
-                 paged: Optional[str] = None, sp_axis: Optional[str] = None,
-                 device="cuda", seed: int = 0):
+                 paged: Optional[str] = None, page_count: int = 0,
+                 page_size: int = 0, kv_dtype: Optional[str] = None,
+                 sp_axis: Optional[str] = None, device="cuda", seed: int = 0):
         super().__init__()
-        if decode:
-            raise NotImplementedError(f"decode (KV cache) {_LATER}")
-        if paged is not None:
-            raise NotImplementedError(f"paged KV cache {_LATER}")
-        if sp_axis is not None:
-            raise NotImplementedError(f"sp_axis {_LATER}")
+        _check_modes(decode, paged, attention_fn, sp_axis)
+        _check_kv_dtype(kv_dtype)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.vocab, self.d_model, self.n_layers = vocab, d_model, n_layers
+        self.n_heads, self.d_ff, self.n_kv_heads = n_heads, d_ff, n_kv_heads
         self.max_len, self.dtype = max_len, dtype
         self.attention_fn, self.remat = attention_fn, remat
+        self.decode, self.paged = decode, paged
+        self.page_count, self.page_size = page_count, page_size
+        self.kv_dtype = kv_dtype
         self.embed = nn.Embedding(vocab, d_model)
         with torch.no_grad():
             self.embed.weight.normal_(0.0, d_model ** -0.5, generator=gen)
         self.layers = nn.ModuleList(
             EncoderLayer(d_model, n_heads, d_ff, dtype, attention_fn,
-                         n_kv_heads=n_kv_heads, generator=gen)
+                         n_kv_heads=n_kv_heads, generator=gen,
+                         decode=decode, paged=paged)
             for _ in range(n_layers)
         )
         self.final_norm = LayerNorm(d_model, dtype)
@@ -318,8 +529,37 @@ class TransformerLM(nn.Module):
             return self.pe[start:start + S]
         return self.pe[off.long()]
 
+    @property
+    def device(self) -> torch.device:
+        return self.embed.weight.device
+
+    def init_paged_cache(self, page_count: Optional[int] = None,
+                         page_size: Optional[int] = None,
+                         kv_dtype: Optional[str] = "model"
+                         ) -> List[PagedLayerCache]:
+        """Zero pages for every layer (zeros are the empty cache: every
+        table slot starts invalid).  Defaults to the model's geometry;
+        ``kv_dtype`` defaults to the model's own, and ``None`` asks for
+        full-precision pages whatever the model's field says."""
+        n_kv = self.n_kv_heads or self.n_heads
+        return [PagedLayerCache.zeros(
+            page_count or self.page_count, page_size or self.page_size,
+            n_kv, self.d_model // self.n_heads, self.dtype,
+            self.kv_dtype if kv_dtype == "model" else kv_dtype,
+            device=self.device) for _ in range(self.n_layers)]
+
+    def init_decode_cache(self, batch: int) -> List[DenseLayerCache]:
+        """An empty dense KV cache of ``max_len`` positions a layer."""
+        n_kv = self.n_kv_heads or self.n_heads
+        shape = (batch, self.max_len, n_kv, self.d_model // self.n_heads)
+        return [DenseLayerCache(
+            torch.zeros(shape, dtype=self.dtype, device=self.device),
+            torch.zeros(shape, dtype=self.dtype, device=self.device))
+            for _ in range(self.n_layers)]
+
     def forward(self, tokens, position_offset=None, return_hidden=False,
-                inputs_embeds=None):
+                inputs_embeds=None, block_tables=None, seq_lens=None,
+                cache=None, paged=None, decode=None):
         """``tokens`` (B, S) int.
 
         ``position_offset``: the global position of this shard's first
@@ -339,7 +579,14 @@ class TransformerLM(nn.Module):
         (B, S, d_model) — the input of
         :func:`~chainermn_tpu_torch.ops.fused_ce.fused_cross_entropy` —
         instead of the logits ``embed.attend`` gives.  ``remat`` recomputes
-        each layer in the backward (``torch.utils.checkpoint``)."""
+        each layer in the backward (``torch.utils.checkpoint``).
+
+        ``cache``: a list of per-layer caches (:meth:`init_paged_cache`,
+        :meth:`init_decode_cache`) that the call updates in place;
+        ``paged``/``decode`` override the constructor's mode for this call
+        (one set of parameters serves every mode; a cache mode attends
+        densely, as the reference's twins built without ``attention_fn``
+        do); ``block_tables``/``seq_lens`` route the paged modes."""
         S = tokens.shape[1]
         pos = self._positions(position_offset, S)
         if inputs_embeds is None:
@@ -354,14 +601,69 @@ class TransformerLM(nn.Module):
                 )
             x = inputs_embeds.to(self.dtype)
         x = x + (pos if pos.dim() == 3 else pos[None]).to(self.dtype)
-        mask = (None if self.attention_fn is not None
-                else causal_mask(S, tokens.device))
-        for layer in self.layers:
-            if self.remat and torch.is_grad_enabled():
+        paged = self.paged if paged is None else paged
+        decode = self.decode if decode is None else decode
+        dense = self.attention_fn is None or paged is not None or decode
+        mask = causal_mask(S, tokens.device) if dense else None
+        if cache is None and dense and (paged is not None or decode):
+            cache = [None] * len(self.layers)     # the layers refuse it
+        if cache is None:
+            per_layer = [{}] * len(self.layers)
+        else:
+            if len(cache) != len(self.layers):
+                raise ValueError(f"{len(cache)} layer caches for "
+                                 f"{len(self.layers)} layers")
+            per_layer = [dict(cache=c, block_tables=block_tables,
+                              seq_lens=seq_lens, paged=paged, decode=decode)
+                         for c in cache]
+        for layer, args in zip(self.layers, per_layer):
+            if self.remat and torch.is_grad_enabled() and not args:
                 x = checkpoint(layer, x, mask, use_reentrant=False)
             else:
-                x = layer(x, mask)
+                x = layer(x, mask, **args)
         x = self.final_norm(x)
         if return_hidden:
             return x
         return _dense(x, self.embed.weight, self.dtype)
+
+
+def generate(lm: TransformerLM, prompt, max_new_tokens: int,
+             rng: Optional[torch.Generator] = None,
+             temperature: float = 0.0, device="cuda"):
+    """Autoregressive generation with a dense KV cache — O(T·max_len)
+    attention instead of re-running the prefix for every token.
+
+    ``lm``: any :class:`TransformerLM` (the cache path attends densely,
+    whatever its ``attention_fn``) on ``device`` (default ``"cuda"``; raises with no CUDA device unless
+    ``device="cpu"``).  ``prompt``: (B, T) int.  Greedy at
+    ``temperature=0`` (argmax, first max on ties), else softmax sampling
+    from ``rng`` (a ``torch.Generator`` on ``device``; the draws are
+    torch's, not the reference's ``jax.random``).  Returns (B, T +
+    max_new_tokens): the prompt with its continuation."""
+    dev = check_model_device(lm.device, device)
+    prompt = torch.as_tensor(prompt, device=dev)
+    B, T = prompt.shape
+    total = T + max_new_tokens
+    if total > lm.max_len:
+        raise ValueError(
+            f"prompt + new tokens ({total}) exceed max_len {lm.max_len}")
+    if temperature > 0.0 and rng is None:
+        raise ValueError("temperature > 0 requires rng")
+    cache = lm.init_decode_cache(B)
+    prev = torch.zeros(B, dtype=prompt.dtype, device=dev)
+    ys = []
+    with torch.no_grad():
+        for t in range(total - 1):
+            tok = prompt[:, t] if t < T else prev
+            logits = lm(tok[:, None], position_offset=t, cache=cache,
+                        paged=None, decode=True)[:, 0]
+            if temperature > 0.0:
+                p = torch.softmax(logits.float() / temperature, dim=-1)
+                nxt = torch.multinomial(p, 1, generator=rng)[:, 0]
+            else:
+                nxt = logits.argmax(-1)
+            prev = nxt.to(prompt.dtype)
+            ys.append(prev)
+    # ys[t] is the prediction after consuming token t.
+    gen = torch.stack(ys[T - 1:], dim=1)
+    return torch.cat([prompt, gen], dim=1)

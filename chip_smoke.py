@@ -111,13 +111,36 @@ of which fails the run when wrong:
    and ``zero`` for 3 steps each under the same loss limit, each step
    time recorded; (c) ``python -m chainermn_tpu_torch.tools.shardplan
    --lint --format json`` over the nine models, equal to
-   ``tests/golden/torch_shardplan_lint.json``.
+   ``tests/golden/torch_shardplan_lint.json``;
+12. the serving path (``chainermn_tpu_torch.serving``: frontend ->
+   continuous-batching scheduler -> engine over paged KV pages) at
+   ``bench.py::bench_serve``'s configuration (phase 4's LM widths, bf16,
+   seed 0, max_len 512, pages of 16 tokens, 512 pages): (a) 16 requests
+   of 64-token prompts, 32 new tokens, greedy, at decode batches 1, 2, 4
+   and 8 with 3-token n-gram drafts and without: decode tokens/s,
+   per-token p50/p99, TTFT, prefill tokens/s, peak memory, kernel
+   launches a decode step, and one profiled decode step at the best
+   batch (device time by kind, idle share); (b) 0.75 of every prompt
+   shared against the same traffic without the prefix cache; (c) the
+   truncated-model draft against n-gram, int8 pages against full
+   precision; (d) 8 prompts of 2048 tokens in slices of 512 (max_len
+   4096, 2048 pages): TTFT, decode p99, peak memory; (e) three groups of
+   streams against reference streams: every stream of (a) and (c)'s
+   model draft against each request alone through ``engine.generate``,
+   (b)'s prefix-cached streams against its no-cache streams, and a run
+   with decode pinned to 8 rows against each request alone at 8 rows;
+   each divergence's top-2 margin against the logit differences of the
+   reference stream teacher-forced through decode at B 1 and B 8 and
+   4-token chunks (limit ``SERVE_TOL``), and the engine against the
+   dense model; (f) the ``serve_lm`` example's
+   ``main`` at its defaults, every request on the successor pattern.  No
+   flash kernel may launch on this path.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 ``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
 ``{"model_parallel": ...}``, a JSON line ``{"pipeline": ...}``, a JSON
-line ``{"long_context": ...}``, a JSON line ``{"gspmd": ...}``, the card's
-``name, power.limit`` line, a
+line ``{"long_context": ...}``, a JSON line ``{"gspmd": ...}``, a JSON
+line ``{"serving": ...}``, the card's ``name, power.limit`` line, a
 JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -2024,6 +2047,484 @@ def phase_gspmd(torch, K, log, card, train, repo):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the serving path
+# ---------------------------------------------------------------------------
+
+# bench.py::bench_serve's configuration: phase 4's LM widths (bf16, seed 0),
+# max_len 512, pages of 16 tokens, 512 pages; 16 requests of 64-token
+# prompts, 32 new tokens, greedy, decode batches 1-8, drafts of 3 tokens.
+SERVE = dict(max_len=512, block_size=16, n_blocks=512, requests=16,
+             prompt_len=64, new_tokens=32, batch_sizes=(1, 2, 4, 8),
+             spec_tokens=3, prefix_dup=0.75)
+# (d) long prompts at phase 4's context: 8 prompts of 2048 tokens, 64 new
+# tokens, prefilled in slices of 512, 2048 pages (2 GiB of bf16 pages).
+SERVE_LONG = dict(max_len=4096, block_size=16, n_blocks=2048, requests=8,
+                  prompt_len=2048, new_tokens=64, prefill_chunk=512,
+                  max_batch=8)
+# (e) bf16 logits of one stream through two step shapes (decode at B 1 and
+# B 8, a 4-token chunk) or the dense model: every activation is rounded to
+# bf16 after each op, and a GEMM of another shape may sum in another order,
+# so an activation can move by a bf16 ulp (2^-8 relative) per op; over 8
+# layers that reaches the head as a few ulps of the largest logit.  Limit:
+# 2^-5 of the row's largest |logit| (8 ulps).  A misrouted page or mask
+# moves logits by O(1) of their scale.
+SERVE_TOL = 2.0 ** -5
+
+
+def serve_kind(name):
+    low = name.lower()
+    return ("flash" if "flash_" in low else
+            "gemm" if any(w in low for w in ("gemm", "nvjet", "xmma",
+                                              "cutlass", "cublas")) else
+            "gather/scatter" if any(w in low for w in ("index", "gather",
+                                                        "scatter")) else
+            "copy (casts)" if "copy" in low else
+            "softmax" if "softmax" in low else
+            "layernorm" if "layer_norm" in low or "layernorm" in low else
+            "elementwise")
+
+
+def serve_prompts(n, length, vocab, dup, seed=0):
+    """bench_serve's traffic: the leading ``dup`` share of every prompt is
+    one shared template, the rest random, from ``RandomState(seed)``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    shared = rng.randint(0, vocab, size=int(length * dup)).tolist()
+    return [shared + rng.randint(0, vocab, size=length - len(shared)).tolist()
+            for _ in range(n)]
+
+
+def serve_point(torch, lm, prompts, new_tokens, bs, *, spec_tokens, **ecfg):
+    """One measured serving run (bench_serve's sweep point): a fresh engine
+    at decode batch ``bs``, a warm-up request, then every prompt through
+    the frontend at once.  Per-token gaps, TTFT (submit to first token),
+    decode tokens/s over the run's wall time, prefill tokens/s over the
+    time spent in prefill calls, peak memory; the streams."""
+    from chainermn_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                             EngineConfig, InferenceEngine,
+                                             SamplingParams, ServeFrontend)
+
+    cfg = dict(max_batch=bs)
+    cfg.update(ecfg)
+    engine = InferenceEngine(lm, EngineConfig(**cfg))
+    sched = ContinuousBatchingScheduler(engine, spec_tokens=spec_tokens)
+    fe = ServeFrontend(sched, max_queue=len(prompts) + 1)
+    fe.submit(prompts[0], new_tokens, sampling=SamplingParams())
+    fe.run_until_idle()
+    prefill_s = [0.0]
+
+    def timed(fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                prefill_s[0] += time.perf_counter() - t
+        return call
+
+    engine.prefill = timed(engine.prefill)
+    engine.prefill_cached = timed(engine.prefill_cached)
+    if spec_tokens == 0 and engine.prefill_chunk:
+        engine.chunk = timed(engine.chunk)     # every chunk is a slice
+    cached0 = engine.stats()["tokens_prefix_cached"]
+    stamps = {}
+
+    def on_token(rid, tok):
+        stamps.setdefault(rid, []).append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    handles = [fe.submit(p, new_tokens, sampling=SamplingParams(),
+                         on_token=on_token) for p in prompts]
+    fe.run_until_idle()
+    wall = time.perf_counter() - t0
+    st = engine.stats()
+    gaps = sorted(b - a for ts in stamps.values() for a, b in zip(ts, ts[1:]))
+    ttft = sorted(ts[0] - t0 for ts in stamps.values())
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3 if xs else None
+
+    n_prefill = (sum(len(p) for p in prompts)
+                 - (st["tokens_prefix_cached"] - cached0))
+    res = sched.results()
+    row = {
+        "batch_size": bs, "spec_tokens": spec_tokens,
+        "tokens_per_s": sum(len(h.tokens) for h in handles) / wall,
+        "p50_token_ms": pct(gaps, 0.5), "p99_token_ms": pct(gaps, 0.99),
+        "ttft_p50_ms": pct(ttft, 0.5), "ttft_p99_ms": pct(ttft, 0.99),
+        "prefill_tokens_per_s": n_prefill / max(prefill_s[0], 1e-9),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "wall_s": wall,
+        "finished": sum(h.status == "finished" for h in handles),
+        "requests": len(handles),
+        "preemptions": sum(r.preemptions for r in res.values()),
+        "shapes": {k: st[k] for k in ("prefill_compiles", "decode_compiles",
+                                      "chunk_compiles")},
+        "tokens_prefix_cached": st["tokens_prefix_cached"] - cached0,
+        "cow_splits": st["cow_splits"],
+    }
+    if sched._spec_rows:
+        row["spec_accept_len"] = sched._spec_emitted / sched._spec_rows
+    if sched._prefix_lookup_tokens:
+        row["prefix_hit_rate"] = (sched._prefix_hit_tokens
+                                  / sched._prefix_lookup_tokens)
+    if "kv_quant_err" in st:
+        row["kv_quant_err"] = st["kv_quant_err"]
+    if "draft_source" in st:
+        row["draft_source"] = st["draft_source"]
+    row["streams"] = [list(h.tokens) for h in handles]
+    if row["finished"] != len(handles):
+        raise AssertionError(f"{len(handles) - row['finished']} requests "
+                             f"did not finish at B={bs}")
+    return row
+
+
+def decode_step_fn(torch, lm, prompts, bs, **ecfg):
+    """``bs`` prompts prefilled on a fresh engine; returns a function
+    running one decode step over them (each call rewrites the same slot)."""
+    import numpy as np
+
+    from chainermn_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    cfg = dict(max_batch=bs)
+    cfg.update(ecfg)
+    engine = InferenceEngine(lm, EngineConfig(**cfg))
+    sids, lens, toks = list(range(bs)), [], []
+    for sid, p in zip(sids, prompts[:bs]):
+        engine.kv.allocate(sid, len(p))
+        toks.append(int(np.argmax(engine.prefill(p, sid))))
+        engine.kv.extend(sid, len(p) + 1)
+        lens.append(len(p))
+
+    def step():
+        return engine.decode(toks, sids, lens)
+
+    step()
+    return step
+
+
+def count_launches(torch, fn):
+    """Device kernels (and copies) one call of ``fn`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False))
+
+
+def host_profile(fn, n=5, top=14):
+    """``fn`` run ``n`` times under cProfile: host ms a call in all, and
+    the port's functions by cumulative host ms a call (where the host's
+    time in a decode step goes: the page routing, the attention, the
+    projections and their casts)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n):
+        fn()
+    prof.disable()
+    st = pstats.Stats(prof).stats
+    total = sum(v[2] for v in st.values()) / n * 1e3
+    rows = sorted(((v[3] / n * 1e3, v[1] // n,
+                    f"{os.path.basename(k[0])}:{k[1]} {k[2]}")
+                   for k, v in st.items()
+                   if "chainermn_tpu_torch" in k[0]), reverse=True)
+    return total, rows[:top]
+
+
+def teacher_forced(torch, lm, streams, prompts, how, **ecfg):
+    """fp32 logits predicting every token of each ``prompts[i] +
+    streams[i]``, fed through the engine: ``how`` is ``("decode", B)``
+    (rows decoded B at a time) or ``("chunk", T)`` (T tokens a step, 8
+    rows at a time).  Returns one (len(stream), V) array a request."""
+    import numpy as np
+
+    from chainermn_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    kind, width = how
+    n = len(prompts)
+    group = width if kind == "decode" else 8
+    out = [None] * n
+    for g0 in range(0, n, group):
+        ids = list(range(g0, min(n, g0 + group)))
+        cfg = dict(max_batch=len(ids))
+        cfg.update(ecfg)
+        engine = InferenceEngine(lm, EngineConfig(**cfg))
+        rows = {i: [] for i in ids}
+        for i in ids:
+            engine.kv.allocate(i, len(prompts[i]))
+            rows[i].append(engine.prefill(prompts[i], i))
+        L = len(streams[ids[0]])
+        step = 1 if kind == "decode" else width
+        for j in range(0, L - 1, step):
+            feed = [streams[i][j:min(j + step, L - 1)] for i in ids]
+            starts = [len(prompts[i]) + j for i in ids]
+            for i, f, s0 in zip(ids, feed, starts):
+                engine.kv.extend(i, s0 + len(f))
+            if kind == "decode":
+                got = engine.decode([f[0] for f in feed], ids, starts)
+                for r, i in enumerate(ids):
+                    rows[i].append(got[r])
+            else:
+                got = engine.chunk(feed, ids, starts)
+                for r, i in enumerate(ids):
+                    rows[i].extend(got[r, :len(feed[r])])
+        for i in ids:
+            out[i] = np.stack(rows[i])
+    return out
+
+
+def _rel_rows(a, b):
+    """Largest |a - b| of each row over the row's largest |b|."""
+    import numpy as np
+
+    return float(np.max(np.abs(a - b).max(-1) / np.abs(b).max(-1)))
+
+
+def phase_serving_contracts(torch, lm, groups, log):
+    """(e): each group is ``name -> (prompts, reference streams, {run:
+    streams}, engine config)``.  Every run's streams are held against the
+    group's reference streams; a divergence must be explained by the
+    reference stream's top-2 margin there against the teacher-forced logit
+    differences between step shapes (decode at B 1 and B 8, 4-token
+    chunks) on the reference streams; the engine is held against the dense
+    model."""
+    import numpy as np
+
+    out, bad = {"tol": SERVE_TOL}, []
+    for group, (prompts, refs, runs, ecfg) in groups.items():
+        tf1, tf8, tfc = (teacher_forced(torch, lm, refs, prompts, how, **ecfg)
+                         for how in (("decode", 1), ("decode", 8),
+                                     ("chunk", 4)))
+        diffs = [max(_rel_rows(a, b), _rel_rows(c, b))
+                 for a, b, c in zip(tf8, tf1, tfc)]
+        dense = []
+        with torch.no_grad():
+            for p, s, ref in zip(prompts, refs, tf1):
+                toks = torch.tensor([p + s[:-1]], device=lm.device)
+                d = lm(toks)[0, len(p) - 1:].float().cpu().numpy()
+                dense.append(_rel_rows(d, ref))
+        g = out[group] = {"teacher_forced_max_rel": max(diffs),
+                          "oracle_max_rel": max(dense), "runs": {}}
+        for name, streams in runs.items():
+            same, divs = 0, []
+            for i, (s, a) in enumerate(zip(streams, refs)):
+                if s == a:
+                    same += 1
+                    continue
+                j = next(k for k, (x, y) in enumerate(zip(s, a)) if x != y)
+                top = np.sort(tf1[i][j])[-2:]
+                margin = float((top[1] - top[0]) / np.abs(tf1[i][j]).max())
+                divs.append({"request": i, "position": j,
+                             "margin_rel": margin,
+                             "teacher_forced_rel": diffs[i]})
+                if margin > diffs[i]:
+                    bad.append(f"{group}/{name} request {i} diverged at {j} "
+                               f"with top-2 margin {margin:.3g} > "
+                               f"teacher-forced difference {diffs[i]:.3g}")
+            g["runs"][name] = {"identical_share": same / len(refs),
+                               "divergences": divs}
+            log(f"serving contract {group}/{name}: {same}/{len(refs)} "
+                f"streams identical to the reference streams; divergences "
+                f"{divs}")
+        log(f"serving contract {group}: teacher-forced logits (decode B 1 "
+            f"vs B 8 and 4-token chunks) max {max(diffs):.3g} of the row's "
+            f"largest |logit|, engine vs the dense model {max(dense):.3g} "
+            f"(limit {SERVE_TOL:.3g})")
+        if max(diffs) > SERVE_TOL:
+            bad.append(f"{group}: teacher-forced logits differ by "
+                       f"{max(diffs):.3g}")
+        if max(dense) > SERVE_TOL:
+            bad.append(f"{group}: engine vs the dense model "
+                       f"{max(dense):.3g}")
+    if bad:
+        raise AssertionError("phase 12e: " + "; ".join(bad))
+    return out
+
+
+def phase_serving(torch, K, log, card):
+    """Phase 12: (a) the bench_serve sweep, (b) shared prefixes against no
+    prefix cache, (c) the model draft and int8 pages, (d) long prompts in
+    slices, (e) the contracts, (f) the serve_lm example; no flash kernel
+    may launch."""
+    import numpy as np
+
+    from chainermn_tpu_torch.examples import serve_lm
+    from chainermn_tpu_torch.models.transformer import TransformerLM
+
+    S, LG = SERVE, SERVE_LONG
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    lm = TransformerLM(vocab=FULL["vocab"], d_model=FULL["d_model"],
+                       n_heads=FULL["n_heads"], d_ff=FULL["d_ff"],
+                       n_layers=FULL["n_layers"], dtype=torch.bfloat16,
+                       max_len=max(S["max_len"], LG["max_len"]), seed=0)
+    lm.requires_grad_(False)
+    V = lm.vocab
+    n_params = sum(p.numel() for p in lm.parameters())
+    geo = dict(block_size=S["block_size"], n_blocks=S["n_blocks"],
+               max_len=S["max_len"])
+    P, N = S["prompt_len"], S["new_tokens"]
+    prompts = serve_prompts(S["requests"], P, V, 0.0)
+    out = {"card": card, "params_m": n_params / 1e6, "config": S,
+           "long_config": LG}
+    log(f"serving lm {n_params / 1e6:.1f}M params, {S['requests']} requests "
+        f"of {P} tokens, {N} new, pages {S['n_blocks']} x "
+        f"{S['block_size']}")
+
+    # (a)
+    sweep, runs = [], {}
+    for bs in S["batch_sizes"]:
+        for spec in (S["spec_tokens"], 0):
+            row = serve_point(torch, lm, prompts, N, bs, spec_tokens=spec,
+                              **geo)
+            runs[f"B{bs}_spec{spec}"] = row.pop("streams")
+            row["launches_per_decode_step"] = count_launches(
+                torch, decode_step_fn(torch, lm, prompts, bs, **geo))
+            sweep.append(row)
+            log(f"serve B={bs} spec={spec}: {row['tokens_per_s']:.1f} "
+                f"tokens/s, per-token p50 {row['p50_token_ms']:.2f} ms p99 "
+                f"{row['p99_token_ms']:.2f} ms, TTFT p50 "
+                f"{row['ttft_p50_ms']:.1f} ms, prefill "
+                f"{row['prefill_tokens_per_s']:.0f} tokens/s, peak "
+                f"{row['peak_gib']:.2f} GiB, launches a decode step "
+                f"{row['launches_per_decode_step']}, accept "
+                f"{row.get('spec_accept_len')}, shapes {row['shapes']}")
+    best = max((r for r in sweep if r["spec_tokens"] == 0),
+               key=lambda r: r["tokens_per_s"])
+    bb = best["batch_size"]
+    out["sweep"] = sweep
+    out["best_batch_size"] = bb
+    wall, busy, kinds = profile_step(
+        torch, decode_step_fn(torch, lm, prompts, bb, **geo),
+        log, what=f"decode step B={bb}", kind_of=serve_kind)
+    host_ms, host_rows = host_profile(decode_step_fn(torch, lm, prompts, bb,
+                                                     **geo))
+    out["profile"] = {"batch_size": bb, "wall_ms": wall, "busy_ms": busy,
+                      "idle_share": 1 - busy / wall, "by_kind_ms": kinds,
+                      "host_ms": host_ms, "host_cumulative_ms": host_rows}
+    log(f"host profile: decode step B={bb} {host_ms:.1f} ms of host under "
+        f"cProfile; cumulative ms a step by function: "
+        + "; ".join(f"{name} {ms:.2f} (x{n})" for ms, n, name in host_rows))
+
+    # (b)
+    dup_prompts = serve_prompts(S["requests"], P, V, S["prefix_dup"])
+    shared = serve_point(torch, lm, dup_prompts, N, bb,
+                         spec_tokens=S["spec_tokens"], **geo)
+    base = serve_point(torch, lm, dup_prompts, N, bb,
+                       spec_tokens=S["spec_tokens"], prefix_cache=False,
+                       **geo)
+    prefix_cached = shared.pop("streams")
+    dup_base = base.pop("streams")
+    out["prefix"] = {"dup": S["prefix_dup"], "shared": shared,
+                     "no_sharing": base,
+                     "speedup": shared["tokens_per_s"] / base["tokens_per_s"]}
+    log(f"serve prefix dup {S['prefix_dup']}: {shared['tokens_per_s']:.1f} "
+        f"tokens/s against {base['tokens_per_s']:.1f} without the prefix "
+        f"cache (speedup {out['prefix']['speedup']:.3f}), hit rate "
+        f"{shared.get('prefix_hit_rate')}, cached tokens "
+        f"{shared['tokens_prefix_cached']}, CoW splits "
+        f"{shared['cow_splits']}")
+
+    # (c)
+    model_draft = serve_point(torch, lm, prompts, N, bb,
+                              spec_tokens=S["spec_tokens"], draft="model",
+                              **geo)
+    runs["model_draft"] = model_draft.pop("streams")
+    ngram = next(r for r in sweep if r["batch_size"] == bb
+                 and r["spec_tokens"] == S["spec_tokens"])
+    int8 = serve_point(torch, lm, prompts, N, bb, spec_tokens=0,
+                       kv_dtype="int8", **geo)
+    int8_streams = int8.pop("streams")
+    out["draft"] = {"model": model_draft, "ngram_tokens_per_s":
+                    ngram["tokens_per_s"], "ngram_accept_len":
+                    ngram.get("spec_accept_len")}
+    out["kv_int8"] = {"int8": int8, "full_tokens_per_s":
+                      best["tokens_per_s"],
+                      "identical_share": float(np.mean(
+                          [a == b for a, b in
+                           zip(int8_streams, runs[f"B{bb}_spec0"])]))}
+    log(f"serve draft model: {model_draft['tokens_per_s']:.1f} tokens/s, "
+        f"accept {model_draft.get('spec_accept_len')} against n-gram "
+        f"{ngram['tokens_per_s']:.1f} tokens/s, accept "
+        f"{ngram.get('spec_accept_len')}; int8 pages "
+        f"{int8['tokens_per_s']:.1f} tokens/s against "
+        f"{best['tokens_per_s']:.1f}, kv_quant_err "
+        f"{int8['kv_quant_err']:.4g}, streams equal to full precision "
+        f"{out['kv_int8']['identical_share']:.3f}")
+
+    # (d)
+    long_prompts = serve_prompts(LG["requests"], LG["prompt_len"], V, 0.0,
+                                 seed=1)
+    lrow = serve_point(torch, lm, long_prompts, LG["new_tokens"],
+                       LG["max_batch"], spec_tokens=0,
+                       block_size=LG["block_size"], n_blocks=LG["n_blocks"],
+                       max_len=LG["max_len"],
+                       prefill_chunk=LG["prefill_chunk"])
+    lrow.pop("streams")
+    out["long"] = lrow
+    log(f"serve long {LG['requests']} x {LG['prompt_len']} tokens, slices "
+        f"of {LG['prefill_chunk']}: TTFT p50 {lrow['ttft_p50_ms']:.1f} ms "
+        f"p99 {lrow['ttft_p99_ms']:.1f} ms, decode p50 "
+        f"{lrow['p50_token_ms']:.2f} ms p99 {lrow['p99_token_ms']:.2f} ms, "
+        f"{lrow['tokens_per_s']:.1f} tokens/s, prefill "
+        f"{lrow['prefill_tokens_per_s']:.0f} tokens/s, peak "
+        f"{lrow['peak_gib']:.2f} GiB")
+
+    # (e)
+    from chainermn_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    eng = InferenceEngine(lm, EngineConfig(max_batch=8, **geo))
+    alone = [eng.generate(p, N) for p in prompts]
+    pinned = dict(geo, max_batch=8, batch_buckets=(8,))
+    eng8 = InferenceEngine(lm, EngineConfig(**pinned))
+    alone8 = [eng8.generate(p, N) for p in prompts]
+    pinned_run = serve_point(torch, lm, prompts, N, 8, spec_tokens=0,
+                             **pinned)["streams"]
+    out["contracts"] = phase_serving_contracts(torch, lm, {
+        "alone": (prompts, alone, runs, geo),
+        "prefix": (dup_prompts, dup_base,
+                   {"prefix_cached": prefix_cached}, geo),
+        "pinned_B8": (prompts, alone8, {"pinned_B8": pinned_run}, pinned),
+    }, log)
+
+    # (f)
+    t = time.perf_counter()
+    vocab = serve_lm.parser().parse_args([]).vocab
+    losses, served = serve_lm.main([])
+    off = [(p, s) for p, s in served
+           if s != [(p[-1] + 1 + j) % vocab for j in range(len(s))]]
+    out["example"] = {"final_loss": losses[-1], "requests": len(served),
+                      "off_pattern": len(off),
+                      "seconds": time.perf_counter() - t}
+    log(f"serve_lm example: final loss {losses[-1]:.4f}, {len(served)} "
+        f"requests, {len(off)} off the successor pattern "
+        f"({out['example']['seconds']:.1f} s)")
+    if off:
+        raise AssertionError(f"phase 12f: off-pattern streams {off}")
+
+    launches = dict(K.LAUNCHES)
+    out["flash_launches"] = launches
+    if any(launches.values()):
+        raise AssertionError(f"phase 12: flash kernels launched on the "
+                             f"serving path: {launches}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12: flash launches {launches}; {out['wall_s']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -2082,6 +2583,7 @@ def main(argv=None) -> int:
     pipeline = phase_pipeline(torch, log, card)
     long_context = phase_long_context(torch, K, log, card)
     gspmd = phase_gspmd(torch, K, log, card, train, repo)
+    serving = phase_serving(torch, K, log, card)
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -2104,6 +2606,7 @@ def main(argv=None) -> int:
     print(json.dumps({"pipeline": pipeline}), flush=True)
     print(json.dumps({"long_context": long_context}), flush=True)
     print(json.dumps({"gspmd": gspmd}), flush=True)
+    print(json.dumps({"serving": serving}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

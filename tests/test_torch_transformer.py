@@ -165,12 +165,53 @@ def test_bf16_layers_cast_inputs_and_params():
     assert out.dtype == torch.bfloat16
 
 
+def _token_by_token(model, toks, mode):
+    """Logits of every position fed one token a call through a cache mode
+    (``decode``: the dense cache; ``paged``: prefill of the first 5
+    tokens, then paged decode of the rest, rows on pages [0, 1] and
+    [2, 3] of 4 tokens)."""
+    B, S = toks.shape
+    t = torch.from_numpy(toks).long()
+    out = []
+    with torch.no_grad():
+        if mode == "decode":
+            cache = model.init_decode_cache(B)
+            for i in range(S):
+                out.append(model(t[:, i:i + 1], position_offset=i,
+                                 cache=cache, decode=True)[:, 0])
+            return torch.stack(out, 1)
+        cache = model.init_paged_cache(8, 4)
+        tables = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+        P = 5
+        lens = torch.full((B,), P, dtype=torch.int32)
+        out.append(model(t[:, :P], block_tables=tables, seq_lens=lens,
+                         cache=cache, paged="prefill"))
+        for i in range(P, S):
+            pos = torch.full((B, 1), i)
+            out.append(model(t[:, i:i + 1], position_offset=pos,
+                             block_tables=tables,
+                             seq_lens=torch.full((B,), i, dtype=torch.int32),
+                             cache=cache, paged="decode"))
+        return torch.cat(out, 1)
+
+
 def test_later_slices_and_missing_device_raise():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-        MultiHeadAttention(16, 2, decode=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-        TransformerLM(vocab=8, d_model=16, n_heads=2, d_ff=16, n_layers=1,
-                      paged="decode", device="cpu")
+    # decode (dense KV cache) and paged are ported: fed one token a call
+    # (GQA, fp32), each mode gives the reference's dense logits; sp_axis
+    # is the next serving slice.
+    toks, _ = _batch(rows=2)
+    toks = toks[:, :8]
+    jm = _jax_model(attn=False, n_kv_heads=2)
+    params = jm.init(jax.random.PRNGKey(4), jnp.asarray(toks))["params"]
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(toks)))
+    model = _port_model(attn=False, n_kv_heads=2)
+    model.load_state_dict(convert.flax_to_state_dict(
+        jax.tree.map(np.asarray, params)))
+    for mode in ("decode", "paged"):
+        got = _token_by_token(model, toks, mode).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5,
+                                   err_msg=mode)
+    assert MultiHeadAttention(16, 2, decode=True).decode
     with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
         TransformerLM(vocab=8, d_model=16, n_heads=2, d_ff=16, n_layers=1,
                       sp_axis="seq", device="cpu")
@@ -180,3 +221,52 @@ def test_later_slices_and_missing_device_raise():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TransformerLM(vocab=8, d_model=16, n_heads=2, d_ff=16,
                           n_layers=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_modes_teacher_forced_match_the_reference_twins(dtype):
+    """The reference's own paged prefill and decode twins (flax ``cache``
+    collection) against the port's paged modes, teacher-forced on the same
+    tokens and weights.  fp32: 1e-5.  bf16: both sides round the same
+    products to bf16 but may sum them in another order, so a logit may
+    differ by a few bf16 ulps of the largest logit; held to 2^-6 of
+    max |logit| (4 ulps at that magnitude; 0.0057 on the CPU)."""
+    jd = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    toks, _ = _batch(rows=2)
+    toks = toks[:, :8]
+    B, P = 2, 5
+    twin = dict(**CFG, dtype=jd, n_kv_heads=2, page_count=8, page_size=4)
+    pre = JaxLM(**twin, paged="prefill")
+    dec = JaxLM(**twin, paged="decode")
+    tables = jnp.asarray([[0, 1], [2, 3]], jnp.int32)
+    lens = jnp.full((B,), P, jnp.int32)
+    variables = pre.init(jax.random.PRNGKey(5), jnp.asarray(toks[:, :P]),
+                         block_tables=tables, seq_lens=lens)
+    params = variables["params"]
+    cache = jax.tree.map(jnp.zeros_like, variables["cache"])
+    out, upd = pre.apply({"params": params, "cache": cache},
+                         jnp.asarray(toks[:, :P]), block_tables=tables,
+                         seq_lens=lens, mutable=["cache"])
+    want = [np.asarray(out, np.float32)]
+    cache = upd["cache"]
+    for i in range(P, toks.shape[1]):
+        out, upd = dec.apply(
+            {"params": params, "cache": cache}, jnp.asarray(toks[:, i:i + 1]),
+            position_offset=jnp.full((B, 1), i, jnp.int32),
+            block_tables=tables, seq_lens=jnp.full((B,), i, jnp.int32),
+            mutable=["cache"])
+        want.append(np.asarray(out, np.float32))
+        cache = upd["cache"]
+    want = np.concatenate(want, 1)
+    model = TransformerLM(**CFG, dtype=dtype, n_kv_heads=2, device="cpu")
+    model.load_state_dict(convert.flax_to_state_dict(
+        jax.tree.map(np.asarray, params)))
+    got = _token_by_token(model, toks, "paged").float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= 2.0 ** -6, err
+    pages = convert.flax_cache_to_pages(jax.device_get(cache),
+                                        CFG["n_layers"])
+    assert pages[0].k_pages.dtype == dtype
