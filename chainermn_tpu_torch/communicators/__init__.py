@@ -8,6 +8,8 @@ Name map (reference → port):
 ``pure_nccl``      alias of ``xla_ici``
 ``xla_ici``        one fused NCCL allreduce per bucket
 ``hierarchical``   intra-node reduce → inter-node allreduce → intra bcast
+                   (``scatter_inter``: intra reduce-scatter → inter
+                   allreduce → intra all-gather, per tensor)
 ``non_cuda_aware``  alias of ``hierarchical``
 ``two_dimensional``  intra reduce-scatter → inter allreduce → intra all-gather
 ``single_host``    one allreduce within one node; raises over several nodes
@@ -49,6 +51,7 @@ def create_communicator(
     inter_size: int | None = None,
     intra_size: int | None = None,
     bucket_bytes: int | None = None,
+    scatter_inter: bool = False,
     overlap: bool | None = None,
     overlap_granularity: int | None = None,
     comm_dtype=None,
@@ -61,7 +64,10 @@ def create_communicator(
     :func:`mesh_utils.ensure_process_group`), then builds the intra/inter
     sub-groups.  ``inter_size``/``intra_size`` force the node
     factorization; ``bucket_bytes`` caps the fused gradient buckets
-    (``None`` = 4 MiB, ``0`` = unbucketed); ``overlap`` pins the
+    (``None`` = ``CHAINERMN_TPU_BUCKET_BYTES``, else 4 MiB; ``0`` =
+    unbucketed); ``scatter_inter`` (hierarchical only) runs the intra leg
+    as reduce-scatter/all-gather so the inter hop moves ``1/intra_size``
+    of the bytes; ``overlap`` pins the
     backward-overlapped bucket launch (``None`` = ``CHAINERMN_TPU_OVERLAP``,
     default ON) and ``overlap_granularity`` its buckets per stage;
     ``comm_dtype`` (``"int8"``/``"fp8"``) puts the buckets on a scaled
@@ -72,12 +78,19 @@ def create_communicator(
             f"choose from {sorted(_COMMUNICATORS)}"
         )
     cls = _COMMUNICATORS[communicator_name]
+    kwargs: dict = dict(
+        allreduce_grad_dtype=allreduce_grad_dtype, bucket_bytes=bucket_bytes,
+        overlap=overlap, overlap_granularity=overlap_granularity,
+        comm_dtype=comm_dtype)
+    if scatter_inter:
+        if not issubclass(cls, HierarchicalCommunicator):
+            raise ValueError(
+                "scatter_inter is only meaningful for the hierarchical "
+                f"communicator, not {communicator_name!r}")
+        kwargs["scatter_inter"] = True
     topo = build_topology(resolve_device(device), inter_size=inter_size,
                           intra_size=intra_size)
-    return cls(topo, allreduce_grad_dtype=allreduce_grad_dtype,
-               bucket_bytes=bucket_bytes, overlap=overlap,
-               overlap_granularity=overlap_granularity,
-               comm_dtype=comm_dtype)
+    return cls(topo, **kwargs)
 
 
 __all__ = [

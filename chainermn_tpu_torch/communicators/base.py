@@ -108,8 +108,9 @@ class CommunicatorBase:
 
     ``allreduce_grad_dtype`` casts gradients before the collective and
     back after (the reference's ``pure_nccl`` fp16 option);
-    ``bucket_bytes`` caps the fused gradient buckets (``None`` = 4 MiB,
-    ``0`` = one collective per tensor through the subclass's own path);
+    ``bucket_bytes`` caps the fused gradient buckets (``None`` =
+    :meth:`resolve_bucket_bytes`, ``0`` = one collective per tensor
+    through the subclass's own path);
     ``overlap`` pins the backward-overlapped bucket launch (``None`` =
     ``CHAINERMN_TPU_OVERLAP``, default ON); ``overlap_granularity`` sets
     buckets per launch stage; ``comm_dtype`` (``"int8"``/``"fp8"``/
@@ -125,12 +126,12 @@ class CommunicatorBase:
                  comm_dtype=None):
         self.topology = topology
         self.allreduce_grad_dtype = allreduce_grad_dtype
-        if bucket_bytes is not None and int(bucket_bytes) < 0:
-            raise ValueError(f"bucket_bytes must be >= 0, got {bucket_bytes}")
-        self.bucket_bytes = (
-            packing.DEFAULT_BUCKET_BYTES if bucket_bytes is None
-            else int(bucket_bytes)
-        )
+        if bucket_bytes is not None:
+            bucket_bytes = int(bucket_bytes)
+            if bucket_bytes < 0:
+                raise ValueError(
+                    f"bucket_bytes must be >= 0, got {bucket_bytes}")
+        self.bucket_bytes = bucket_bytes
         self.overlap = None if overlap is None else bool(overlap)
         if overlap_granularity is not None:
             overlap_granularity = int(overlap_granularity)
@@ -359,6 +360,26 @@ class CommunicatorBase:
             return False
         return bool((x.float() == self.size).all())
 
+    def resolve_bucket_bytes(self) -> int:
+        """Effective bucket cap for one ``allreduce_grad`` call: the
+        constructor's ``bucket_bytes`` if set, else the
+        ``CHAINERMN_TPU_BUCKET_BYTES`` override (``0`` = unbucketed; a
+        value that is not an integer is ignored, a negative one gives 0),
+        else 4 MiB.  The reference looks up a tuned value between the
+        override and the default (ROADMAP A.7); the port has no tune
+        cache yet."""
+        bb = self.bucket_bytes
+        if bb is None:
+            env = os.environ.get(packing.ENV_BUCKET_BYTES, "").strip()
+            if env:
+                try:
+                    bb = int(env)
+                except ValueError:
+                    bb = None
+        if bb is None:
+            bb = packing.DEFAULT_BUCKET_BYTES
+        return max(int(bb), 0)
+
     def resolve_overlap(self, overlap: bool | None = None) -> bool:
         """The call's pin, else the constructor's ``overlap``, else the
         ``CHAINERMN_TPU_OVERLAP`` gate (default ON)."""
@@ -392,7 +413,8 @@ class CommunicatorBase:
         leaves = _leaves(grads)
         if not leaves:
             return grads
-        bucketed = len(leaves) > 1 and self.bucket_bytes > 0
+        bb = self.resolve_bucket_bytes() if len(leaves) > 1 else 0
+        bucketed = bb > 0
         wire = self.wire_dtype() if bucketed else None
         if self.size == 1 and wire is None:
             if self.allreduce_grad_dtype is not None:
@@ -404,11 +426,10 @@ class CommunicatorBase:
         if self.allreduce_grad_dtype is not None:
             work = [g.to(self.allreduce_grad_dtype) for g in leaves]
         if bucketed:
-            key = tuple((tuple(g.shape), g.dtype) for g in work)
+            key = (bb,) + tuple((tuple(g.shape), g.dtype) for g in work)
             packer = self._packers.get(key)
             if packer is None:
-                packer = packing.GradPacker.for_tensors(work,
-                                                        self.bucket_bytes)
+                packer = packing.GradPacker.for_tensors(work, bb)
                 self._packers[key] = packer
             bufs = packer.pack(work)
             out = packer.unpack([self._launch_bucket(b, wire)()
@@ -741,6 +762,35 @@ class CommunicatorBase:
 
 
 _LOCAL_GROUPS: dict = {}
+_GROUP_COMMS: dict = {}
+
+
+def group_communicator(group) -> CommunicatorBase:
+    """The ``xla_ici`` communicator over an existing process group (a
+    ``DeviceMesh`` dimension's, or one the caller made), built once per
+    group and world: its ranks are the group's, in the group's order, and
+    on NCCL its object plane gets a gloo group of the same members.
+    Called by a member of ``group``."""
+    from .xla_ici import XlaIciCommunicator
+
+    world = dist.group.WORLD
+    hit = _GROUP_COMMS.get(group.group_name)
+    if hit is not None and hit[0] is world:
+        return hit[1]
+    members = tuple(dist.get_process_group_ranks(group))
+    rank = members.index(dist.get_rank())
+    nccl = dist.get_backend(group) == "nccl"
+    device = (torch.device("cuda", torch.cuda.current_device()) if nccl
+              else torch.device("cpu"))
+    obj = _local_group(sorted(members), backend="gloo") if nccl else None
+    topo = Topology(
+        device=device, rank=rank, size=len(members), intra_rank=0,
+        intra_size=1, inter_rank=rank, inter_size=len(members),
+        intra_group=None, inter_group=group, group=group, members=members,
+        obj_group=obj)
+    comm = XlaIciCommunicator(topo)
+    _GROUP_COMMS[group.group_name] = (world, comm)
+    return comm
 
 
 def _local_group(ranks, backend=None):
@@ -748,9 +798,10 @@ def _local_group(ranks, backend=None):
     one per member set and backend (``None`` = the world's): torch names
     such a group from its ranks and the count of groups this process has
     made, which only the members agree on, so a second split over the same
-    ranks must reuse the first one's group."""
-    key = (tuple(ranks), backend)
-    if key not in _LOCAL_GROUPS:
-        _LOCAL_GROUPS[key] = dist.new_group(list(ranks), backend=backend,
-                                            use_local_synchronization=True)
-    return _LOCAL_GROUPS[key]
+    ranks in the same world must reuse the first one's group."""
+    key, world = (tuple(ranks), backend), dist.group.WORLD
+    hit = _LOCAL_GROUPS.get(key)
+    if hit is None or hit[0] is not world:
+        hit = _LOCAL_GROUPS[key] = (world, dist.new_group(
+            list(ranks), backend=backend, use_local_synchronization=True))
+    return hit[1]

@@ -127,7 +127,7 @@ class BackwardOverlap:
         self.packer = packing.GradPacker(
             [p.shape for p in self.params],
             [p.dtype if dt is None else dt for p in self.params],
-            comm.bucket_bytes,
+            comm.resolve_bucket_bytes(),
         )
         self.schedule = build_overlap_schedule(self.packer, granularity)
         self._bucket_of = {}

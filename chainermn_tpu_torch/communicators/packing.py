@@ -28,6 +28,10 @@ import torch
 #: Default bucket cap (``chainermn_tpu/communicators/packing.py:43``).
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
 
+#: Environment override of the bucket cap when the constructor leaves it
+#: ``None`` (``0`` disables bucketing).
+ENV_BUCKET_BYTES = "CHAINERMN_TPU_BUCKET_BYTES"
+
 #: Buckets that cannot take a power-of-two size pad to this multiple.
 LANE_ELEMS = 128
 

@@ -19,28 +19,31 @@ from .base import CommunicatorBase
 from .packing import pack_tree
 
 
+def scatter_allreduce_sum(buf, topo):
+    """Sum of a 1-D buffer over the world by the three legs (zero padding
+    is exact in any dtype, so this serves the narrow wire)."""
+    k, n = topo.intra_size, buf.numel()
+    pad = (-n) % k
+    if pad:
+        buf = torch.cat([buf, buf.new_zeros(pad)])
+    shard = buf
+    if k > 1:
+        shard = buf.new_empty(buf.numel() // k)
+        dist.reduce_scatter_tensor(shard, buf, group=topo.intra_group)
+    if topo.inter_size > 1:
+        dist.all_reduce(shard, group=topo.inter_group)
+    if k > 1:
+        full = torch.empty_like(buf)
+        dist.all_gather_into_tensor(full, shard, group=topo.intra_group)
+        shard = full
+    return shard[:n]
+
+
 class TwoDimensionalCommunicator(CommunicatorBase):
     name = "two_dimensional"
 
     def _allreduce_sum_impl(self, buf):
-        """Sum of a 1-D buffer over the world by the three legs (zero
-        padding is exact in any dtype, so this serves the narrow wire)."""
-        topo = self.topology
-        k, n = topo.intra_size, buf.numel()
-        pad = (-n) % k
-        if pad:
-            buf = torch.cat([buf, buf.new_zeros(pad)])
-        shard = buf
-        if k > 1:
-            shard = buf.new_empty(buf.numel() // k)
-            dist.reduce_scatter_tensor(shard, buf, group=topo.intra_group)
-        if topo.inter_size > 1:
-            dist.all_reduce(shard, group=topo.inter_group)
-        if k > 1:
-            full = torch.empty_like(buf)
-            dist.all_gather_into_tensor(full, shard, group=topo.intra_group)
-            shard = full
-        return shard[:n]
+        return scatter_allreduce_sum(buf, self.topology)
 
     def _allreduce_impl(self, tensors):
         if not tensors:

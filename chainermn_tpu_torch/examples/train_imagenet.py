@@ -75,10 +75,9 @@ def state_digest(tree, crc: int = 0) -> int:
     return zlib.crc32(repr(tree).encode(), crc)
 
 
-def dropout_seed(gstep: int, rank: int) -> int:
-    """The dropout generator's seed at global step ``gstep`` on ``rank``
-    (the reference folds its key 7 by step and device)."""
-    return 7 + (gstep << 20) + rank
+#: The dropout models' ``rng`` seed (the reference's ``PRNGKey(7)``); the
+#: multi-node optimizer seeds a generator from it per step and rank.
+DROPOUT_SEED = 7
 
 
 def main(argv=None) -> dict:
@@ -89,7 +88,8 @@ def main(argv=None) -> dict:
                    help="torch device (default cuda; cpu runs over gloo)")
     p.add_argument("--bucket-bytes", type=int, default=None,
                    help="gradient-allreduce bucket cap in bytes "
-                        "(0 disables bucketing; default 4 MiB)")
+                        "(0 disables bucketing; default: 4 MiB / "
+                        "CHAINERMN_TPU_BUCKET_BYTES)")
     p.add_argument("--arch", "--model", dest="arch", default="resnet50",
                    choices=list(ARCHS))
     p.add_argument("--batchsize", type=int, default=256, help="global batch")
@@ -166,9 +166,7 @@ def main(argv=None) -> dict:
         lr_schedule=linear_schedule(0.0, scaled_lr, args.warmup_steps))
     opt.init()
 
-    rng = None if has_bn else torch.Generator(device=dev)
-
-    def loss_fn(batch):
+    def loss_fn(batch, rng=None):
         x, y = batch
         logits = (model(x, train=True) if has_bn
                   else model(x, train=True, rng=rng))
@@ -178,7 +176,8 @@ def main(argv=None) -> dict:
         step = opt.make_train_step_with_state(loss_fn, model,
                                               local_batch=True)
     else:
-        step = opt.make_train_step(loss_fn, local_batch=True)
+        step = opt.make_train_step(loss_fn, local_batch=True,
+                                   rng=DROPOUT_SEED)
 
     def metric_fn(model, batch):
         x, y = batch
@@ -244,8 +243,6 @@ def main(argv=None) -> dict:
                     if args.steps and n_steps >= args.steps:
                         break          # the cap counts replayed steps too
                     continue
-                if rng is not None:
-                    rng.manual_seed(dropout_seed(gstep, comm.rank))
                 losses.append(step(batch))
                 n_seen += batch[0].shape[0] * comm.size
                 n_steps += 1

@@ -54,7 +54,8 @@ def main(argv=None) -> dict:
                    help="torch device (default cuda; cpu runs over gloo)")
     p.add_argument("--bucket-bytes", type=int, default=None,
                    help="gradient-allreduce bucket cap in bytes "
-                        "(0 disables bucketing; default 4 MiB)")
+                        "(0 disables bucketing; default: 4 MiB / "
+                        "CHAINERMN_TPU_BUCKET_BYTES)")
     p.add_argument("--comm-dtype", default=None,
                    help="gradient wire: int8 or fp8 (default: "
                         "CHAINERMN_TPU_COMM_DTYPE, else full precision)")

@@ -39,9 +39,22 @@ caller owns the caches (:meth:`TransformerLM.init_paged_cache`,
 :meth:`TransformerLM.init_decode_cache`) and passes them to ``forward``,
 which updates them in place.  The reference builds a prefill, a decode and
 a chunk twin over one parameter tree; here ``forward(..., paged=mode)``
-picks the mode per call over the module's own parameters.  The
-sequence-parallel chunk prefill (``sp_axis``) is a later slice (ROADMAP
-A.6) and raises ``NotImplementedError``.
+picks the mode per call over the module's own parameters.
+
+Sequence-parallel chunk prefill (``sp_axis``, ``paged="chunk"`` only):
+each rank holds C consecutive tokens of one slice; K and V are gathered
+to the whole slice (:func:`~chainermn_tpu_torch.parallel.ring_attention.gather_sequence_kv`,
+a pure concatenation, so every rank writes the pages the unsharded chunk
+writes) and the local queries attend at their global causal bounds.
+``sp_axis`` is a communicator (anything with ``rank`` and ``allgather``)
+or the name of a dimension of the ``DeviceMesh`` passed as ``mesh=``,
+where the reference names a ``shard_map`` axis.
+
+Tensor parallelism: with DTensor parameters (a serving engine under a
+sharding plan) the attention core — the page writes, the paged or dense
+attention — runs on each rank's local heads through ``local_map``
+(:func:`~chainermn_tpu_torch.parallel.sharding.on_local_heads`), over
+pages whose KV-head axis is sharded the same way.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import check_model_device, resolve_device
 from ..communicators.quant import dequantize_kv, quantize_kv
+from ..parallel.ring_attention import gather_sequence_kv
 from ..ops.decode_attention import (
     _scale,
     paged_attention_chunk,
@@ -66,7 +80,6 @@ from ..ops.decode_attention import (
     write_token_pages,
 )
 
-_LATER = "is a later slice of the port (ROADMAP A.6)"
 PAGED_MODES = ("prefill", "decode", "chunk")
 
 
@@ -128,9 +141,11 @@ def _check_kv_dtype(kv_dtype):
 def _check_modes(decode, paged, attention_fn, sp_axis):
     """The reference's refusals of the cache modes (construction and
     per-call overrides alike)."""
-    if sp_axis is not None:
-        raise NotImplementedError(
-            f"sp_axis (sequence-parallel chunk prefill) {_LATER}")
+    if sp_axis is not None and paged != "chunk":
+        raise ValueError(
+            "sp_axis shards the multi-token chunk step only; decode is "
+            "per-token (nothing to shard) and whole-prompt prefill should "
+            "use the chunk path when sequence-sharded")
     if paged is None:
         if decode and attention_fn is not None:
             raise ValueError(
@@ -215,7 +230,7 @@ class MultiHeadAttention(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_modes(decode, paged, attention_fn, sp_axis)
-        self.decode, self.paged = decode, paged
+        self.decode, self.paged, self.sp_axis = decode, paged, sp_axis
         n_kv = n_kv_heads or n_heads
         if n_heads % n_kv:
             raise ValueError(
@@ -234,7 +249,8 @@ class MultiHeadAttention(nn.Module):
                 _init_linear(layer, generator)
 
     def forward(self, q_in, kv_in, mask=None, *, cache=None,
-                block_tables=None, seq_lens=None, paged=None, decode=None):
+                block_tables=None, seq_lens=None, paged=None, decode=None,
+                sp_axis=None, mesh=None):
         """``cache``: this layer's :class:`PagedLayerCache` (paged modes) or
         :class:`DenseLayerCache` (``decode``), updated in place.
         ``paged``/``decode`` override the constructor's mode for this call
@@ -243,14 +259,18 @@ class MultiHeadAttention(nn.Module):
         :mod:`~chainermn_tpu_torch.ops.decode_attention`): ``seq_lens`` is
         the valid prompt length for ``prefill``, the context length before
         the token for ``decode``, and each row's start position for
-        ``chunk``."""
+        ``chunk``.  ``sp_axis`` (a communicator, or a dimension of
+        ``mesh``) shards a chunk's tokens over ranks (overriding the
+        constructor's)."""
         paged = self.paged if paged is None else paged
         decode = self.decode if decode is None else decode
+        sp_axis = self.sp_axis if sp_axis is None else sp_axis
         cached = paged is not None or decode
         if cached:
             # A cache mode runs the dense path, as the reference's twins
             # (built without attention_fn) do.
-            _check_modes(decode, paged, None, None)
+            _check_modes(decode, paged, None,
+                         sp_axis if paged == "chunk" else None)
         attention_fn = None if cached else self.attention_fn
         B, Sq, _ = q_in.shape
         Sk = kv_in.shape[1]
@@ -259,36 +279,58 @@ class MultiHeadAttention(nn.Module):
         k = _dense(kv_in, self.key.weight, dt).view(B, Sk, Hk, dh)
         v = _dense(kv_in, self.value.weight, dt).view(B, Sk, Hk, dh)
         if paged is not None:
-            out = self._paged(paged, q, k, v, cache, block_tables, seq_lens)
-            if out is not None:
-                return _dense(out.reshape(B, Sq, H * dh), self.out.weight, dt)
-        elif decode:
-            k, v, mask = self._dense_cache(q, k, v, cache)
-        if attention_fn is not None:
-            out = attention_fn(q, k, v, mask)
+            if cache is None or block_tables is None or seq_lens is None:
+                raise ValueError("paged modes require a cache, block_tables "
+                                 "and seq_lens")
+            sp = (_sp_comm(sp_axis, mesh)
+                  if paged == "chunk" and sp_axis is not None else None)
+            leaves = cache.leaves()
+            names = [n for n in leaves if n.endswith("_pages")]
+            scales = [n for n in leaves if n.endswith("_scales")]
+            heads = _head_comm(q)
+
+            def core(q, k, v, *tensors):
+                c = dataclasses.replace(cache, **dict(zip(names + scales,
+                                                          tensors)))
+                out = self._paged(paged, q, k, v, mask, c, block_tables,
+                                  seq_lens, sp, heads)
+                cache.kv_quant_err = c.kv_quant_err
+                return out
+
+            out = self._local(core, q, k, v, [leaves[n] for n in names],
+                              [leaves[n] for n in scales])
         else:
-            if Hk != H:
-                k = torch.repeat_interleave(k, H // Hk, dim=2)
-                v = torch.repeat_interleave(v, H // Hk, dim=2)
-            # The reference's numpy scale promotes the logits to fp32.
-            logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * _scale(dh)
-            if mask is not None:
-                logits = torch.where(
-                    mask, logits,
-                    torch.full_like(logits, torch.finfo(torch.float32).min),
-                )
-            weights = torch.softmax(logits, dim=-1).to(dt)
-            out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
+            if decode:
+                k, v, mask = self._dense_cache(q, k, v, cache)
+            if attention_fn is not None:
+                out = attention_fn(q, k, v, mask)
+            else:
+                out = self._local(lambda q, k, v: _attend(q, k, v, mask),
+                                  q, k, v)
         return _dense(out.reshape(B, Sq, H * dh), self.out.weight, dt)
 
-    def _paged(self, mode, q, k, v, cache, block_tables, seq_lens):
-        """Write this call's K/V into the pages and, for ``decode`` and
-        ``chunk``, attend over them; ``prefill`` returns ``None`` so the
-        dense causal path runs over the local K/V (the prompt is the whole
-        context, still in full precision)."""
-        if cache is None or block_tables is None or seq_lens is None:
-            raise ValueError("paged modes require a cache, block_tables "
-                             "and seq_lens")
+    @staticmethod
+    def _local(fn, q, k, v, tensors=(), whole=()):
+        """``fn(q, k, v, *tensors, *whole)``, on each rank's local heads
+        when ``q`` is a DTensor (``tensors`` shard their heads on dim 2
+        as ``q`` does; ``whole`` are replicated)."""
+        if type(q) is torch.Tensor:
+            return fn(q, k, v, *tensors, *whole)
+        from ..parallel.sharding import on_local_heads
+
+        return on_local_heads(fn, q, k, v, *tensors, whole=whole)
+
+    def _paged(self, mode, q, k, v, mask, cache, block_tables, seq_lens,
+               sp=None, heads=None):
+        """Write this call's K/V into the pages and attend: ``prefill``
+        over the local K/V with the dense causal mask (the prompt is the
+        whole context, still in full precision), ``decode`` and ``chunk``
+        over the pages.  ``sp`` shards a chunk's tokens (see the module
+        docstring).  ``heads`` (tensor parallelism): the group over which
+        this rank's KV heads are one slice of every head; int8 scales are
+        kept whole and equal on every rank (the reference's replicated
+        ``k_scales``/``v_scales``), so each write gathers every rank's
+        scales and the attention reads this rank's slice of them."""
         quant = cache.k_scales is not None
 
         def write_kv(writer, lens):
@@ -298,25 +340,41 @@ class MultiHeadAttention(nn.Module):
                 return
             qk, k_sc = quantize_kv(k)
             qv, v_sc = quantize_kv(v)
-            writer(cache.k_pages, qk, block_tables, lens)
-            writer(cache.v_pages, qv, block_tables, lens)
-            writer(cache.k_scales, k_sc, block_tables, lens)
-            writer(cache.v_scales, v_sc, block_tables, lens)
-            cache.kv_quant_err = torch.maximum(
+            err = torch.maximum(
                 (dequantize_kv(qk, k_sc, torch.float32) - k.float())
                 .abs().amax(),
                 (dequantize_kv(qv, v_sc, torch.float32) - v.float())
                 .abs().amax(),
             )
+            if heads is not None:
+                k_sc = heads.allgather(k_sc, axis=-1, tiled=True)
+                v_sc = heads.allgather(v_sc, axis=-1, tiled=True)
+                err = heads.allreduce(err, "max")
+            writer(cache.k_pages, qk, block_tables, lens)
+            writer(cache.v_pages, qv, block_tables, lens)
+            writer(cache.k_scales, k_sc, block_tables, lens)
+            writer(cache.v_scales, v_sc, block_tables, lens)
+            cache.kv_quant_err = err
 
         scales = dict(k_scales=cache.k_scales, v_scales=cache.v_scales)
+        if quant and heads is not None:
+            h0 = heads.rank * k.shape[2]
+            scales = {n: t[:, :, h0:h0 + k.shape[2]]
+                      for n, t in scales.items()}
         if mode == "prefill":
             write_kv(write_prompt_pages, seq_lens)
-            return None
+            return _attend(q, k, v, mask)
         if mode == "chunk":
+            attn_start = seq_lens
+            if sp is not None:
+                C = q.shape[1]
+                k, v = gather_sequence_kv(k, v, sp)
+                # Padding rows (seq_lens < 0) stay masked on every rank.
+                lens = torch.as_tensor(seq_lens)
+                attn_start = torch.where(lens >= 0, lens + sp.rank * C, lens)
             write_kv(write_chunk_pages, seq_lens)
             return paged_attention_chunk(q, cache.k_pages, cache.v_pages,
-                                         block_tables, seq_lens, **scales)
+                                         block_tables, attn_start, **scales)
         if q.shape[1] != 1:
             raise ValueError(
                 f"paged decode consumes exactly one token per call, got a "
@@ -350,6 +408,53 @@ class MultiHeadAttention(nn.Module):
         return ck, cv, mask
 
 
+def _attend(q, k, v, mask):
+    """Dense attention over ``(B, S, H, D)`` heads (grouped K/V repeated),
+    softmax in fp32 (the reference's numpy scale promotes the logits)."""
+    H, dt = q.shape[2], q.dtype
+    if k.shape[2] != H:
+        k = torch.repeat_interleave(k, H // k.shape[2], dim=2)
+        v = torch.repeat_interleave(v, H // v.shape[2], dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * _scale(
+        q.shape[-1])
+    if mask is not None:
+        logits = torch.where(
+            mask, logits,
+            torch.full_like(logits, torch.finfo(torch.float32).min))
+    weights = torch.softmax(logits, dim=-1).to(dt)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def _head_comm(q):
+    """For a DTensor ``q`` whose heads (dim 2) shard over one mesh
+    dimension, that dimension's group; else ``None``."""
+    if type(q) is torch.Tensor:
+        return None
+    from torch.distributed.tensor import Shard
+
+    from ..parallel.sharding import axis_comm
+
+    mesh = q.device_mesh
+    dims = [i for i, p in enumerate(q.placements)
+            if isinstance(p, Shard) and p.dim % q.ndim == 2]
+    if not dims:
+        return None
+    return axis_comm(mesh, mesh.mesh_dim_names[dims[0]])
+
+
+def _sp_comm(sp_axis, mesh):
+    """The communicator of a sequence-parallel chunk: ``sp_axis`` itself,
+    or the ``mesh`` dimension it names."""
+    if not isinstance(sp_axis, str):
+        return sp_axis
+    if mesh is None:
+        raise ValueError(f"sp_axis {sp_axis!r} names a mesh dimension: "
+                         "pass the DeviceMesh as mesh=")
+    from ..parallel.sharding import axis_comm
+
+    return axis_comm(mesh, sp_axis)
+
+
 class FeedForward(nn.Module):
     def __init__(self, d_model: int, d_ff: int, dtype=torch.bfloat16,
                  generator: Optional[torch.Generator] = None):
@@ -373,19 +478,22 @@ class EncoderLayer(nn.Module):
                  dtype=torch.bfloat16, attention_fn=None,
                  n_kv_heads: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 decode: bool = False, paged: Optional[str] = None):
+                 decode: bool = False, paged: Optional[str] = None,
+                 sp_axis=None):
         super().__init__()
         self.norm_0 = LayerNorm(d_model, dtype)
         self.attention = MultiHeadAttention(
             d_model, n_heads, dtype, attention_fn, decode=decode,
-            n_kv_heads=n_kv_heads, paged=paged, generator=generator,
+            n_kv_heads=n_kv_heads, paged=paged, sp_axis=sp_axis,
+            generator=generator,
         )
         self.norm_1 = LayerNorm(d_model, dtype)
         self.feed_forward = FeedForward(d_model, d_ff, dtype, generator)
 
     def forward(self, x, mask=None, **cache_args):
         """``cache_args``: ``cache``, ``block_tables``, ``seq_lens``,
-        ``paged``, ``decode`` for the attention's cache modes."""
+        ``paged``, ``decode``, ``sp_axis``, ``mesh`` for the attention's
+        cache modes."""
         h = self.norm_0(x)
         x = x + self.attention(h, h, mask, **cache_args)
         return x + self.feed_forward(self.norm_1(x))
@@ -488,7 +596,7 @@ class TransformerLM(nn.Module):
                  n_kv_heads: Optional[int] = None,
                  paged: Optional[str] = None, page_count: int = 0,
                  page_size: int = 0, kv_dtype: Optional[str] = None,
-                 sp_axis: Optional[str] = None, device="cuda", seed: int = 0):
+                 sp_axis=None, device="cuda", seed: int = 0):
         super().__init__()
         _check_modes(decode, paged, attention_fn, sp_axis)
         _check_kv_dtype(kv_dtype)
@@ -500,14 +608,14 @@ class TransformerLM(nn.Module):
         self.attention_fn, self.remat = attention_fn, remat
         self.decode, self.paged = decode, paged
         self.page_count, self.page_size = page_count, page_size
-        self.kv_dtype = kv_dtype
+        self.kv_dtype, self.sp_axis = kv_dtype, sp_axis
         self.embed = nn.Embedding(vocab, d_model)
         with torch.no_grad():
             self.embed.weight.normal_(0.0, d_model ** -0.5, generator=gen)
         self.layers = nn.ModuleList(
             EncoderLayer(d_model, n_heads, d_ff, dtype, attention_fn,
                          n_kv_heads=n_kv_heads, generator=gen,
-                         decode=decode, paged=paged)
+                         decode=decode, paged=paged, sp_axis=sp_axis)
             for _ in range(n_layers)
         )
         self.final_norm = LayerNorm(d_model, dtype)
@@ -559,7 +667,8 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens, position_offset=None, return_hidden=False,
                 inputs_embeds=None, block_tables=None, seq_lens=None,
-                cache=None, paged=None, decode=None):
+                cache=None, paged=None, decode=None, sp_axis=None,
+                mesh=None):
         """``tokens`` (B, S) int.
 
         ``position_offset``: the global position of this shard's first
@@ -586,7 +695,9 @@ class TransformerLM(nn.Module):
         ``paged``/``decode`` override the constructor's mode for this call
         (one set of parameters serves every mode; a cache mode attends
         densely, as the reference's twins built without ``attention_fn``
-        do); ``block_tables``/``seq_lens`` route the paged modes."""
+        do); ``block_tables``/``seq_lens`` route the paged modes;
+        ``sp_axis``/``mesh`` shard a chunk's tokens (``position_offset``
+        then holds this rank's global positions)."""
         S = tokens.shape[1]
         pos = self._positions(position_offset, S)
         if inputs_embeds is None:
@@ -614,7 +725,8 @@ class TransformerLM(nn.Module):
                 raise ValueError(f"{len(cache)} layer caches for "
                                  f"{len(self.layers)} layers")
             per_layer = [dict(cache=c, block_tables=block_tables,
-                              seq_lens=seq_lens, paged=paged, decode=decode)
+                              seq_lens=seq_lens, paged=paged, decode=decode,
+                              sp_axis=sp_axis, mesh=mesh)
                          for c in cache]
         for layer, args in zip(self.layers, per_layer):
             if self.remat and torch.is_grad_enabled() and not args:

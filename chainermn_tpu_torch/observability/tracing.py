@@ -48,12 +48,13 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import math
 import os
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from . import step_log as _step_log
 
@@ -70,6 +71,8 @@ __all__ = [
     "read_flight",
     "stitch",
     "validate_trace",
+    "percentile",
+    "detect_stragglers",
 ]
 
 
@@ -377,6 +380,19 @@ class Tracer:
             out.append(r)
         return out
 
+    def stage_stats(self) -> Dict[Tuple[Any, str], List[float]]:
+        """``{(replica, stage): [durations]}`` over the ring — the
+        straggler detector's input."""
+        out: Dict[Tuple[Any, str], List[float]] = {}
+        with self._lock:
+            items = list(self._ring)
+        for kind, row in items:
+            if kind != "span":
+                continue
+            out.setdefault((row.get("replica"), row["name"]), []).append(
+                row["dur"])
+        return out
+
     def open_count(self) -> int:
         with self._lock:
             return len(self._open)
@@ -477,3 +493,38 @@ def validate_trace(spans: List[dict], skew_s: float = 0.5) -> dict:
         "violations": violations,
         "connected": not orphans and len(roots) >= 1,
     }
+
+
+def percentile(values: List[float], q: float) -> float:
+    """Nearest-rank percentile (q in [0, 100])."""
+    if not values:
+        return 0.0
+    xs = sorted(values)
+    k = max(0, min(len(xs) - 1, math.ceil(q / 100.0 * len(xs)) - 1))
+    return xs[k]
+
+
+def detect_stragglers(stats: Dict[Tuple[Any, str], List[float]],
+                      k: float = 4.0,
+                      min_samples: int = 4) -> Dict[Any, Dict[str, float]]:
+    """Flag replicas whose per-stage median exceeds ``k``x the fleet
+    median of that stage.  Input is :meth:`Tracer.stage_stats` output;
+    returns ``{replica: {stage: ratio}}`` for flagged pairs only (the
+    serving router publishes them as gauges)."""
+    by_stage: Dict[str, Dict[Any, float]] = {}
+    for (rep, stage), xs in stats.items():
+        if rep is None or len(xs) < min_samples:
+            continue
+        by_stage.setdefault(stage, {})[rep] = percentile(xs, 50)
+    flagged: Dict[Any, Dict[str, float]] = {}
+    for stage, meds in by_stage.items():
+        if len(meds) < 2:
+            continue  # no fleet to compare against
+        fleet = percentile(list(meds.values()), 50)
+        if fleet <= 0:
+            continue
+        for rep, m in meds.items():
+            ratio = m / fleet
+            if ratio > k:
+                flagged.setdefault(rep, {})[stage] = ratio
+    return flagged

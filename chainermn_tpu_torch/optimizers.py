@@ -89,6 +89,33 @@ def _batch_leaves(batch):
     return out
 
 
+def _stack_aux(auxs):
+    """The microbatches' aux trees stacked leaf by leaf on a new leading
+    axis (the reference's ``lax.scan`` output)."""
+    first = auxs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(auxs)
+    if isinstance(first, Mapping):
+        return {k: _stack_aux([a[k] for a in auxs]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack_aux(list(col)) for col in zip(*auxs))
+    return torch.stack([torch.as_tensor(a) for a in auxs])
+
+
+def rng_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
+    """The generator seed of microbatch ``micro`` of step ``step`` on
+    ``rank`` under ``make_train_step(rng=seed)``: one 63-bit word of
+    numpy's ``SeedSequence`` over the four, so every (step, rank,
+    microbatch) draws its own stream and a rerun draws the same ones.
+    (The reference folds a jax key by step, device and microbatch; the
+    streams differ from jax's, the contract is the same.)"""
+    import numpy as np
+
+    words = np.random.SeedSequence(
+        [int(seed), int(step), int(rank), int(micro)]).generate_state(2)
+    return (int(words[0]) << 32 | int(words[1])) & ((1 << 63) - 1)
+
+
 def _check_batch_divisibility(batch, n_dev, n_accum=1):
     quantum = n_dev * n_accum
     for leaf in _batch_leaves(batch):
@@ -331,8 +358,9 @@ class MultiNodeOptimizer:
     def make_train_step(self, loss_fn: Callable, n_accum: int = 1,
                         loss_scale: float | None = None,
                         overlap: bool | None = None,
-                        local_batch: bool = False):
-        """Build ``step(batch) -> loss``.
+                        local_batch: bool = False,
+                        has_aux: bool = False, rng: int | None = None):
+        """Build ``step(batch) -> loss`` (``(loss, aux)`` with ``has_aux``).
 
         ``n_accum > 1`` splits this rank's slice into that many equal
         microbatches; their gradients are summed and divided by
@@ -342,18 +370,31 @@ class MultiNodeOptimizer:
         the update.  The returned loss is unscaled.  ``overlap`` pins the
         backward-overlapped launch for this step (``None`` = the
         communicator's; it is inert under ZeRO, as in the reference).
-        ``local_batch`` says that ``batch`` is this rank's slice."""
+        ``local_batch`` says that ``batch`` is this rank's slice.
+
+        ``has_aux``: ``loss_fn`` returns ``(loss, aux)``; the step returns
+        ``(loss, aux)`` with this rank's aux detached, stacked on a leading
+        ``n_accum`` axis when ``n_accum > 1``.  ``rng`` (an integer seed):
+        ``loss_fn(batch, generator)`` gets a ``torch.Generator`` on the
+        parameters' device seeded with :func:`rng_seed` of (``rng``, the
+        step count, this rank, the microbatch) — per-rank dropout that a
+        rerun reproduces."""
         if n_accum < 1:
             raise ValueError(f"n_accum must be >= 1, got {n_accum}")
         comm = self.communicator
         stage = self.zero_stage
+        gen = None
+        if rng is not None:
+            gen = torch.Generator(
+                device=self._params[0].device if self._params
+                else comm.device)
         if stage and self._shard is None:
             raise RuntimeError("zero_stage > 0: call init() first")
         hooks = None
         if self._overlap is not None:
             self._overlap.remove()
             self._overlap = None
-        if stage == 0 and len(self._params) > 1 and comm.bucket_bytes > 0:
+        if stage == 0 and len(self._params) > 1 and comm.resolve_bucket_bytes() > 0:
             wire = comm.wire_dtype()
             if comm.resolve_overlap(overlap) and (comm.size > 1
                                                  or wire is not None):
@@ -373,11 +414,20 @@ class MultiNodeOptimizer:
             mine = batch if local_batch else _tree_map(
                 lambda x: _slice(x, comm.rank, comm.size), batch)
             loss_sum = gacc = None
+            auxs = []
             for i in range(n_accum):
                 mb = _tree_map(lambda x: _slice(x, i, n_accum), mine)
                 if hooks is not None and i == n_accum - 1:
                     hooks.arm(n_accum)
-                loss = loss_fn(mb)
+                if gen is None:
+                    loss = loss_fn(mb)
+                else:
+                    gen.manual_seed(
+                        rng_seed(rng, self.step_count, comm.rank, i))
+                    loss = loss_fn(mb, gen)
+                if has_aux:
+                    loss, aux = loss
+                    auxs.append(_tree_map(torch.Tensor.detach, aux))
                 scaled = loss if loss_scale is None else loss * loss_scale
                 scaled.backward()
                 loss = loss.detach().float()
@@ -386,6 +436,8 @@ class MultiNodeOptimizer:
                     g = self._scatter_grads()
                     gacc = g if gacc is None else gacc + g
             loss = loss_sum / n_accum
+            if has_aux:
+                aux = auxs[0] if n_accum == 1 else _stack_aux(auxs)
             if stage:
                 if per_micro_scatter:
                     gshard = gacc / n_accum if n_accum > 1 else gacc
@@ -411,27 +463,33 @@ class MultiNodeOptimizer:
                 loss = comm.allreduce(loss.reshape(1).to(comm.device),
                                       "mean")[0]
             self.step_count += 1
-            if stage:
-                self._zero_update(gshard, loss_scale)
-                if stage == 3:
-                    self._release_params()
-                return loss
-            if self.double_buffering:
-                stale, self._stale = self._stale, grads
-                if stale is None:            # first step: reduce only
-                    for p in params:
-                        p.grad = None
-                    return loss
-                for p, g in zip(params, stale):
-                    p.grad = g
-            if loss_scale is not None:
-                for p in params:
-                    p.grad.div_(loss_scale)
-            self._schedule_lr()
-            self.actual_optimizer.step()
-            return loss
+            self._update(params, grads if not stage else None,
+                         gshard if stage else None, loss_scale)
+            return (loss, aux) if has_aux else loss
 
         return step
+
+    def _update(self, params, grads, gshard, loss_scale):
+        """The step's tail: the ZeRO shard update, or the stage-0 update
+        of ``grads`` (the stale ones under double buffering)."""
+        if self.zero_stage:
+            self._zero_update(gshard, loss_scale)
+            if self.zero_stage == 3:
+                self._release_params()
+            return
+        if self.double_buffering:
+            stale, self._stale = self._stale, grads
+            if stale is None:            # first step: reduce only
+                for p in params:
+                    p.grad = None
+                return
+            for p, g in zip(params, stale):
+                p.grad = g
+        if loss_scale is not None:
+            for p in params:
+                p.grad.div_(loss_scale)
+        self._schedule_lr()
+        self.actual_optimizer.step()
 
     def make_train_step_with_state(self, loss_fn: Callable,
                                    model_state: torch.nn.Module,
@@ -511,17 +569,21 @@ class MultiNodeOptimizer:
 
     # -- imperative API (ChainerMN's optimizer.setup(model); update()) ---
     def setup(self, target, loss_fn: Callable, *, n_accum: int = 1,
-              loss_scale: float | None = None):
+              loss_scale: float | None = None, has_aux: bool = False,
+              rng: int | None = None):
         """``target`` is the module whose parameters the wrapped optimizer
-        holds; broadcasts them once and builds the step."""
+        holds; broadcasts them once and builds the step (``has_aux`` and
+        ``rng`` as in :meth:`make_train_step`)."""
         self._target = target
         self.init()
-        self._step_fn = self.make_train_step(loss_fn, n_accum=n_accum,
-                                             loss_scale=loss_scale)
+        self._step_fn = self.make_train_step(
+            loss_fn, n_accum=n_accum, loss_scale=loss_scale,
+            has_aux=has_aux, rng=rng)
         return self
 
     def update(self, batch):
-        """One step on ``batch``; returns the loss."""
+        """One step on ``batch``; returns the loss, or ``(loss, aux)``
+        when :meth:`setup` was given ``has_aux``."""
         if self._step_fn is None:
             raise RuntimeError("call setup(target, loss_fn) before update()")
         return self._step_fn(batch)

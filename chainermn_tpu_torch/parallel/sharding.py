@@ -267,28 +267,56 @@ def _constrain(x, mesh, placements):
     return x
 
 
+def on_local_heads(fn, q, *tensors, whole=()):
+    """``fn(q, *tensors, *whole)`` on each rank's local batch rows and
+    heads through ``local_map``, for ``q`` a ``(B, S, H, D)`` DTensor: a
+    placement of ``q`` that shards the batch (dim 0) or the heads (dim 2)
+    is kept, any other becomes ``Replicate()``; ``tensors`` take the same
+    placements (the paged KV cache's ``(N, page, Hkv, D)`` pages shard
+    their heads on dim 2 too) and ``whole`` are replicated.  The output
+    takes ``q``'s placements.  In-place writes to an input's local tensor
+    land in the DTensor.  This is how code opaque to DTensor (the hand
+    kernels, the paged page writes) runs on local heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim % q.ndim in (0, 2)
+          else Replicate() for p in q.placements]
+    rep = [Replicate()] * len(pl)
+    ins = (pl,) * (1 + len(tensors)) + (rep,) * len(whole)
+    run = local_map(fn, out_placements=pl, in_placements=ins,
+                    in_grad_placements=ins, device_mesh=mesh,
+                    redistribute_inputs=True)
+    return run(q, *tensors, *whole)
+
+
 def local_heads(fn, mesh):
     """Wrap an ``attention_fn(q, k, v, mask)`` (``(B, S, H, D)`` inputs)
     so that, given DTensors, it runs ``fn`` on each rank's local batch
-    rows and heads through ``local_map``: a placement that shards the
-    batch (dim 0) or the heads (dim 2) is kept, any other becomes
-    ``Replicate()``.  Plain tensors pass straight to ``fn``.  This is how
-    the hand kernels, opaque to DTensor, run under the GSPMD step."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    rows and heads (:func:`on_local_heads`).  Plain tensors pass straight
+    to ``fn``.  This is how the hand kernels, opaque to DTensor, run
+    under the GSPMD step."""
+    from torch.distributed.tensor import DTensor
 
     def wrapped(q, k, v, mask=None):
         if not isinstance(q, DTensor):
             return fn(q, k, v, mask)
-        pl = [p if isinstance(p, Shard) and p.dim % q.ndim in (0, 2)
-              else Replicate() for p in q.placements]
-        run = local_map(lambda a, b, c: fn(a, b, c, mask),
-                        out_placements=pl, in_placements=(pl, pl, pl),
-                        in_grad_placements=(pl, pl, pl), device_mesh=mesh,
-                        redistribute_inputs=True)
-        return run(q, k, v)
+        return on_local_heads(lambda a, b, c: fn(a, b, c, mask), q, k, v)
 
     return wrapped
+
+
+def axis_comm(mesh, name: str):
+    """The port's communicator (``xla_ici``, :func:`~chainermn_tpu_torch.
+    communicators.base.group_communicator`) over dimension ``name`` of a
+    ``DeviceMesh`` (the reference's ``shard_map`` axis of that name)."""
+    from ..communicators.base import group_communicator
+
+    names = tuple(mesh.mesh_dim_names or ())
+    if name not in names:
+        raise ValueError(f"{name!r} is not a dimension of the mesh {names}")
+    return group_communicator(mesh.get_group(name))
 
 
 def batch_mean(fn, batch, weights=(), *, data_axis="data"):
@@ -372,6 +400,39 @@ def _owners(model, name_of):
     return owners
 
 
+def place_parameters(model, plan, mesh):
+    """Replace each parameter of ``model`` (tied ones once, in every place
+    they are registered) with a DTensor at ``plan``'s placement over
+    ``mesh``; returns ``[(name, parameter, placements)]`` in
+    ``named_parameters`` order."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..sharding.plan import placements_for
+
+    names = tuple(mesh.mesh_dim_names or ())
+    named = list(model.named_parameters())
+    owners = _owners(model, {id(p): n for n, p in named})
+    out = []
+    for name, p in named:
+        pl = placements_for(plan.spec_for(name, tuple(p.shape)), names)
+        dt = torch.nn.Parameter(distribute_tensor(p.detach(), mesh, pl),
+                                requires_grad=p.requires_grad)
+        for mod, attr in owners[id(p)]:
+            mod._parameters[attr] = dt
+        out.append((name, dt, pl))
+    return out
+
+
+def pin_outputs(model, mesh, placements):
+    """Pin every submodule's DTensor output to ``placements`` with a
+    forward hook (a row-parallel output is then all-reduced where XLA's
+    sharding annotation would put it, not left partial for DTensor's
+    per-op choice); plain outputs pass."""
+    for m in model.modules():
+        m.register_forward_hook(
+            lambda mod, inp, out: _constrain(out, mesh, placements))
+
+
 def make_gspmd_train_step(model, loss_fn, optimizer, mesh, param_spec,
                           data_axis: str = "data"):
     """Build a dp×tp (or fsdp, zero, ...) train step via sharding
@@ -430,25 +491,16 @@ def make_gspmd_train_step(model, loss_fn, optimizer, mesh, param_spec,
         if state:
             raise RuntimeError("shard_fn already placed this model")
         named = list(model.named_parameters())
-        name_of = {id(p): n for n, p in named}
-        owners = _owners(model, name_of)
         entries, opt_params = [], []
-        for name, p in named:
-            shape = tuple(p.shape)
-            fwd_pl = placements_for(plan.spec_for(name, shape), names)
+        for name, dt, fwd_pl in place_parameters(model, plan, mesh):
             mom_pl = placements_for(
-                plan.spec_for(name, shape, moment_rules), names)
-            dt = torch.nn.Parameter(
-                distribute_tensor(p.detach(), mesh, fwd_pl),
-                requires_grad=p.requires_grad)
-            for mod, attr in owners[id(p)]:
-                mod._parameters[attr] = dt
+                plan.spec_for(name, tuple(dt.shape), moment_rules), names)
             if mom_pl == fwd_pl:
                 master = dt
             else:
                 master = torch.nn.Parameter(
                     dt.detach().redistribute(mesh, mom_pl),
-                    requires_grad=p.requires_grad)
+                    requires_grad=dt.requires_grad)
             entries.append((name, dt, master, fwd_pl, mom_pl))
             opt_params.append(master)
         opt = optimizer(opt_params)
@@ -465,8 +517,7 @@ def make_gspmd_train_step(model, loss_fn, optimizer, mesh, param_spec,
         for m in model.modules():
             if isinstance(m, MultiHeadAttention) and m.attention_fn is not None:
                 m.attention_fn = local_heads(m.attention_fn, mesh)
-            m.register_forward_hook(
-                lambda mod, inp, out: _constrain(out, mesh, batch_pl))
+        pin_outputs(model, mesh, batch_pl)
         state.update(opt=opt, entries=entries)
         return model, opt
 

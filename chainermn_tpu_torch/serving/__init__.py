@@ -21,9 +21,11 @@ cache, continuous batching, bucketed prefill/decode/chunk steps.
 The contract, as the reference's: a token stream is the same whether a
 request runs alone through :meth:`engine.InferenceEngine.generate` or
 shares continuous-batched iterations, across preemption, prefix-cache
-hits and speculative accept/reject.  The multi-replica tier
-(``serving/cluster``), tensor-parallel decode and sequence-parallel
-prefill are the next slices (ROADMAP A.6).
+hits and speculative accept/reject.  Across ranks the engine takes a
+tensor-parallel plan and a sequence-parallel chunk prefill, and
+:mod:`~chainermn_tpu_torch.serving.cluster` routes over several replicas
+in one process; the multi-process tier (service loops, shard groups, the
+autoscaler and their host transport) is next (ROADMAP A.6).
 """
 
 from .engine import (  # noqa: F401

@@ -27,10 +27,25 @@ Block tables and lengths stay on the host; only the selected write
 indices and the gather tables cross to the device, without a stream
 synchronise, so the host can run ahead of the card within a step.
 
-The tensor-parallel placement (``plan=``/``mesh=``), the
-sequence-parallel chunk prefill (``sp``) and the pipelined decode
-microbatches (``pp_stages``) are the next serving slice (ROADMAP A.6) and
-raise ``NotImplementedError``.
+Across ranks (one engine a rank, every rank running the same host
+scheduler on the same requests in lockstep; sampling is host-side and
+counter-based, so every rank samples the same token):
+
+* ``plan=``/``mesh=`` — tensor-parallel placement: the module's
+  parameters become DTensors at the plan's placements over a
+  ``DeviceMesh`` and each layer's ``k_pages``/``v_pages`` shard their
+  KV-head axis through the plan's ``kv_pages`` rule.  The attention runs
+  on each rank's local heads (``local_map``), the out projection and
+  ``wo`` are row-parallel, and every submodule's output is pinned
+  replicated (one all-reduce each).  The module is placed in place.
+* ``EngineConfig.sp`` — sequence-parallel chunk prefill: a one-row chunk
+  whose bucket ``sp`` divides is split over a group of ``sp`` ranks (the
+  world in consecutive groups, the first ``sp`` ranks first), each
+  holding C = T / sp tokens; K/V are gathered to the whole slice (a pure
+  concatenation: the pages are the unsharded chunk's, bitwise wherever a
+  GEMM of C rows rounds as one of T rows does, as on the CPU).
+* ``pp_stages`` — a decode iteration runs as contiguous microbatches
+  (:func:`~chainermn_tpu_torch.parallel.pipeline.decode_microbatches`).
 """
 
 from __future__ import annotations
@@ -56,7 +71,10 @@ ENV_PREFILL_CHUNK = "CHAINERMN_TPU_PREFILL_CHUNK"
 #: lazily (``EngineConfig.max_len_growth``).
 DEFAULT_CHUNK_CAP = 4096
 
-_NEXT_SLICE = "is the next serving slice of the port (ROADMAP A.6)"
+# (lockstep ranks, sp) -> (the world they were made in, this rank's
+# sequence-parallel communicator): every engine of one kind shares its
+# process groups, so building engines piles up no communicators.
+_SP_GROUPS: dict = {}
 
 
 def _resolve_draft(cfg: "EngineConfig") -> str:
@@ -131,7 +149,8 @@ class EngineConfig:
     widest decode iteration.  Buckets are pow2 ladders derived from these
     unless given explicitly.  ``kv_dtype``, ``draft`` and
     ``prefill_chunk`` left ``None`` resolve through the environment (see
-    the ``_resolve_*`` functions).  ``sp`` > 1 is the next slice."""
+    the ``_resolve_*`` functions).  ``sp`` > 1 (a power of two) splits
+    one-row chunk steps over that many ranks."""
 
     block_size: int = 16
     n_blocks: int = 256
@@ -195,23 +214,28 @@ class InferenceEngine:
       :class:`~chainermn_tpu_torch.models.transformer.PagedLayerCache` a
       layer (the reference's flax ``cache`` collection);
     * the step programs' bucket bookkeeping.
+
+    ``plan`` (a :class:`~chainermn_tpu_torch.sharding.ShardingPlan` or a
+    registry name) with ``mesh`` (a ``DeviceMesh`` with the plan's
+    dimension names) places ``lm`` for tensor parallelism;
+    ``config.sp`` splits the ranks of ``mesh`` or of the default process
+    group into groups of ``sp`` (see the module docstring).  Engines under the
+    same plan and mesh may share one placed module.
     """
 
     def __init__(self, lm, config: Optional[EngineConfig] = None, *,
                  plan=None, mesh=None, device="cuda"):
         dev = check_model_device(lm.device, device)
-        if plan is not None or mesh is not None:
-            raise NotImplementedError(
-                f"tensor-parallel placement (plan=/mesh=) {_NEXT_SLICE}")
         cfg = (config or EngineConfig(max_len=lm.max_len)).resolved()
         if cfg.max_len > lm.max_len:
             raise ValueError(
                 f"config.max_len {cfg.max_len} exceeds the model's "
                 f"max_len {lm.max_len}"
             )
-        if cfg.sp and int(cfg.sp) > 1:
-            raise NotImplementedError(
-                f"sequence-parallel prefill (sp > 1) {_NEXT_SLICE}")
+        self.sp = int(cfg.sp) if cfg.sp and int(cfg.sp) > 1 else 0
+        self._sp_comm = None
+        if self.sp:
+            self._sp_comm = self._sp_group(plan, mesh)
         self.device = dev
         self.config = cfg
         self.lm = lm
@@ -229,17 +253,19 @@ class InferenceEngine:
         self._table_cap = max(1, -(-cfg.max_len // cfg.block_size))
         self._bucket_growths = 0
         self._max_prefilled = 0
-        self.sp = 0
 
         #: shard-group mirror hook: when set, every device-mutating step
         #: first emits ``(op, host payload)`` here; a follower replays it
         #: with :meth:`apply_step`.
         self.mirror_sink = None
-        #: decode microbatching for tp x pp serving (> 1 is the next slice).
+        #: decode microbatching for tp x pp serving: when > 1, each decode
+        #: iteration runs as this many contiguous microbatch steps (the
+        #: same per-row results: attention is per sequence).
         self.pp_stages = 1
         self._prefill_shapes: set = set()
         self._decode_shapes: set = set()
         self._chunk_shapes: set = set()
+        self._sp_shapes: set = set()
         self._tokens_decoded = 0
         self._tokens_prefilled = 0
         self._tokens_chunked = 0
@@ -248,7 +274,17 @@ class InferenceEngine:
         self._kv_quant_err = 0.0
         self.plan = None
         self.mesh = None
+        if self.sp:
+            from ..sharding import get_plan
 
+            # Plan "sp" replicates everything: each rank's plain tensors
+            # already are that placement.
+            self.plan = get_plan("sp")
+        elif plan is not None:
+            self._apply_plan(plan, mesh)
+
+        # Built after the placement, so the draft runs on the placed
+        # parameters.
         self.draft_source = _resolve_draft(cfg)
         self.prefill_chunk = _resolve_prefill_chunk(cfg)
         self.draft_model: Optional[DraftModel] = None
@@ -256,8 +292,110 @@ class InferenceEngine:
             k = cfg.draft_layers or max(1, lm.n_layers // 2)
             self.draft_model = DraftModel(lm, k, cfg.prefill_buckets)
 
+    def _sp_group(self, plan, mesh):
+        """This rank's sequence-parallel communicator: the ranks of
+        ``mesh`` or of the default process group split into consecutive
+        groups of ``sp`` (the first ``sp`` ranks are the first group).
+        Every lockstep rank runs the sharded chunk in its group, so every
+        rank computes the same logits and pages: a rank running the
+        plain chunk instead could round them differently (another GEMM
+        shape) and sample another token at a near tie.  The groups are
+        made once for each world, ranks and ``sp`` (:data:`_SP_GROUPS`);
+        the first engine of a kind is collective over the world."""
+        import torch.distributed as dist
+
+        from ..communicators.base import group_communicator
+
+        if self.sp & (self.sp - 1):
+            raise ValueError(
+                f"sp must be a power of two (it has to divide the pow2 "
+                f"chunk buckets), got {self.sp}")
+        if plan is not None:
+            raise ValueError(
+                "sp prefill and an explicit tensor-parallel plan are "
+                "mutually exclusive: sp brings its own group and the 'sp' "
+                "registry plan")
+        if mesh is not None:
+            ranks = [int(r) for r in mesh.mesh.reshape(-1).tolist()]
+        elif dist.is_available() and dist.is_initialized():
+            ranks = list(range(dist.get_world_size()))
+        else:
+            ranks = [0]
+        if len(ranks) < self.sp:
+            raise ValueError(
+                f"sp={self.sp} needs {self.sp} ranks, have {len(ranks)}")
+        if len(ranks) % self.sp:
+            raise ValueError(
+                f"sp={self.sp} must divide the {len(ranks)} lockstep ranks")
+        world, key = dist.group.WORLD, (tuple(ranks), self.sp)
+        hit = _SP_GROUPS.get(key)
+        if hit is not None and hit[0] is world:
+            return hit[1]
+        me, mine = dist.get_rank(), None
+        for g in range(0, len(ranks), self.sp):
+            members = ranks[g:g + self.sp]
+            group = dist.new_group(members)
+            if me in members:
+                mine = group_communicator(group)
+        _SP_GROUPS[key] = (world, mine)
+        return mine
+
+    def _apply_plan(self, plan, mesh) -> None:
+        """Tensor-parallel placement from a sharding plan: the module's
+        parameters (:func:`~chainermn_tpu_torch.parallel.sharding.place_parameters`)
+        and each layer's pages at the plan's placements over ``mesh``,
+        every submodule's output pinned replicated."""
+        from torch.distributed.tensor import distribute_tensor
+
+        from ..parallel.sharding import pin_outputs, place_parameters
+        from ..sharding import ShardingPlan, get_plan
+        from ..sharding.plan import placements_for
+
+        if isinstance(plan, str):
+            plan = get_plan(plan)
+        if not isinstance(plan, ShardingPlan):
+            raise TypeError(
+                f"plan must be a ShardingPlan or registry name, got "
+                f"{type(plan).__name__}")
+        if mesh is None:
+            raise ValueError(
+                f"plan {plan.name!r} needs mesh=: the plan only names "
+                "axes; the mesh supplies the devices behind them")
+        names = tuple(mesh.mesh_dim_names or ())
+        missing = set(plan.axes) - set(names)
+        if missing:
+            raise ValueError(
+                f"plan {plan.name!r} shards over axes {sorted(missing)} "
+                f"the mesh lacks (mesh axes: {names})")
+        self.plan, self.mesh = plan, mesh
+        placed = getattr(self.lm, "_serving_placement", None)
+        if placed is None:
+            place_parameters(self.lm, plan, mesh)
+            pin_outputs(self.lm, mesh, placements_for((), names))
+            self.lm._serving_placement = (plan.name, mesh)
+        elif placed != (plan.name, mesh):
+            raise ValueError(
+                f"the module is already placed under plan {placed[0]!r} on "
+                f"another mesh; place a fresh module")
+        for i, c in enumerate(self._cache):
+            for leaf_name, leaf in c.leaves().items():
+                pl = placements_for(
+                    plan.spec_for(f"layers.{i}.{leaf_name}",
+                                  tuple(leaf.shape)), names)
+                setattr(c, leaf_name, distribute_tensor(leaf, mesh, pl))
+        if getattr(self, "draft_model", None) is not None:
+            self.draft_model.rebind(self.lm)
+
+    def _leaves(self):
+        """Every page tensor of every layer, as this rank holds it (the
+        local shard of a placed leaf: the page axis is never sharded)."""
+        for c in self._cache:
+            for leaf in c.leaves().values():
+                yield leaf if self.plan is None or self.sp else \
+                    leaf.to_local()
+
     # -- the step programs ---------------------------------------------
-    def _run(self, mode: str, tokens, tables, lens, offsets=None):
+    def _run(self, mode: str, tokens, tables, lens, offsets=None, sp=None):
         """One forward of ``mode`` over the pages; returns the device
         logits.  ``tokens``/``tables``/``lens``/``offsets`` are host
         arrays; the tables and lengths stay on the host (routing), the
@@ -273,13 +411,21 @@ class InferenceEngine:
             off = np.minimum(np.asarray(offsets, np.int64),
                              self.lm.max_len - 1)
             pos = torch.from_numpy(off).to(dev, non_blocking=True)
+        kw = dict(position_offset=pos,
+                  block_tables=torch.from_numpy(np.asarray(tables, np.int32)),
+                  seq_lens=torch.from_numpy(np.asarray(lens, np.int32)),
+                  cache=self._cache, paged=mode)
+        if sp is not None:
+            kw["sp_axis"] = sp
         with torch.no_grad():
-            logits = self.lm(
-                tok, position_offset=pos,
-                block_tables=torch.from_numpy(np.asarray(tables, np.int32)),
-                seq_lens=torch.from_numpy(np.asarray(lens, np.int32)),
-                cache=self._cache, paged=mode,
-            )
+            if self.mesh is None:
+                logits = self.lm(tok, **kw)
+            else:
+                from torch.distributed.tensor.experimental import (
+                    implicit_replication)
+
+                with implicit_replication():
+                    logits = self.lm(tok, **kw).to_local()
         if self.kv_dtype is not None:
             self._note_kv_err(float(torch.stack(
                 [c.kv_quant_err for c in self._cache]).max()))
@@ -292,26 +438,34 @@ class InferenceEngine:
         return self._run("decode", tok[:, None], tables, lens,
                          offsets=np.maximum(lens, 0)[:, None])
 
-    def _chunk_run(self, tok, tables, start):
+    def _chunk_run(self, tok, tables, start, use_sp=False):
         T = tok.shape[1]
-        offs = np.maximum(start, 0)[:, None] + np.arange(T)[None]
-        return self._run("chunk", tok, tables, start, offsets=offs)
+        comm = self._sp_comm if use_sp else None
+        if comm is None:
+            offs = np.maximum(start, 0)[:, None] + np.arange(T)[None]
+            return self._run("chunk", tok, tables, start, offsets=offs)
+        # This rank's C consecutive tokens at their global positions; the
+        # layers gather the whole slice's K/V, and the logits are gathered
+        # back to the whole slice.
+        C, r = T // comm.size, comm.rank
+        offs = np.maximum(start, 0)[:, None] + r * C + np.arange(C)[None]
+        logits = self._run("chunk", tok[:, r * C:(r + 1) * C], tables, start,
+                           offsets=offs, sp=comm)
+        return comm.allgather(logits, axis=1, tiled=True)
 
     def _cow(self, old: int, new: int) -> None:
         """Device half of a copy-on-write split: page ``old`` duplicated
         into page ``new`` on every cache leaf."""
         with torch.no_grad():
-            for c in self._cache:
-                for leaf in c.leaves().values():
-                    leaf[new] = leaf[old]
+            for leaf in self._leaves():
+                leaf[new] = leaf[old]
 
     def _permute(self, perm) -> None:
         """Device half of a defragment: ``leaf[i] = leaf[perm[i]]``."""
         p = torch.from_numpy(np.asarray(perm, np.int64)).to(self.device)
         with torch.no_grad():
-            for c in self._cache:
-                for leaf in c.leaves().values():
-                    leaf.copy_(leaf[p])
+            for leaf in self._leaves():
+                leaf.copy_(leaf[p])
 
     # -- shard-group mirroring -----------------------------------------
     def _mirror(self, op: str, *payload) -> None:
@@ -329,10 +483,7 @@ class InferenceEngine:
             self._decode_run(*payload)
         elif op == "chunk":
             tok, tables, start, use_sp = payload
-            if use_sp:
-                raise NotImplementedError(
-                    f"sequence-parallel chunk {_NEXT_SLICE}")
-            self._chunk_run(tok, tables, start)
+            self._chunk_run(tok, tables, start, use_sp)
         elif op == "cow":
             self._cow(*payload)
         elif op == "defrag":
@@ -406,10 +557,17 @@ class InferenceEngine:
         """One decode iteration: for each running sequence, write the given
         (just-sampled) token at position ``seq_lens[i]`` and return the
         fp32 (B, vocab) logits predicting the next one.  The batch pads to
-        its bucket with inert rows (invalid tables, ``seq_len = -1``)."""
-        if self.pp_stages > 1 and len(tokens) > 1:
-            raise NotImplementedError(
-                f"pipelined decode microbatches {_NEXT_SLICE}")
+        its bucket with inert rows (invalid tables, ``seq_len = -1``).
+        With ``pp_stages > 1`` the iteration runs as that many contiguous
+        microbatch steps (the same per-row results)."""
+        B = len(tokens)
+        if self.pp_stages > 1 and B > 1:
+            from ..parallel.pipeline import decode_microbatches
+
+            return np.concatenate([
+                self._decode_step(tokens[a:b], seq_ids[a:b], seq_lens[a:b])
+                for a, b in decode_microbatches(B, self.pp_stages)
+            ], axis=0)
         return self._decode_step(tokens, seq_ids, seq_lens)
 
     def _decode_step(self, tokens, seq_ids, seq_lens) -> np.ndarray:
@@ -457,6 +615,10 @@ class InferenceEngine:
                               self.config.max_len, "chunk length")
         Bp = _bucket(B, self.config.batch_buckets, "decode batch")
         W = max(self.table_width(self.kv.seq_len(sid)) for sid in seq_ids)
+        # One-row slices whose bucket sp divides run sequence-parallel
+        # (the same pages: the gather is a pure concatenation); the rest
+        # run the plain chunk step.
+        use_sp = bool(self.sp and B == 1 and T % self.sp == 0)
         tok = np.zeros((Bp, T), np.int32)
         start = np.full((Bp,), -1, np.int32)
         tables = np.full((Bp, W), self.kv.invalid, np.int32)
@@ -466,9 +628,9 @@ class InferenceEngine:
             tok[i, : len(row)] = np.asarray(row, np.int32)
             start[i] = int(s)
             tables[i] = self.kv.padded_table(sid, W)
-        self._chunk_shapes.add((Bp, T, W))
-        self._mirror("chunk", tok, tables, start, False)
-        logits = self._chunk_run(tok, tables, start)
+        (self._sp_shapes if use_sp else self._chunk_shapes).add((Bp, T, W))
+        self._mirror("chunk", tok, tables, start, use_sp)
+        logits = self._chunk_run(tok, tables, start, use_sp)
         self._tokens_chunked += sum(len(r) for r in token_rows)
         covered = max(
             (int(s) + len(r)
@@ -606,6 +768,10 @@ class InferenceEngine:
             out["draft_source"] = self.draft_source
             out["draft_layers"] = self.draft_model.n_layers
             out["draft_compiles"] = self.draft_model.compiles
+        if self.sp:
+            out["sp"] = self.sp
+            out["sp_chunk_compiles"] = len(self._sp_shapes)
+            out["sp_chunk_shapes"] = sorted(self._sp_shapes)
         if self.prefill_chunk:
             out["prefill_chunk"] = self.prefill_chunk
         if self._bucket_growths:

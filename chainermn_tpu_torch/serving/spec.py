@@ -106,12 +106,29 @@ class DraftModel:
                 d_ff=lm.d_ff, n_layers=self.n_layers, max_len=lm.max_len,
                 dtype=lm.dtype, n_kv_heads=lm.n_kv_heads, device="meta",
             )
+        self.model = model
+        self.rebind(lm)
+        self._shapes = set()
+
+    def rebind(self, lm) -> None:
+        """Take ``lm``'s embedding, first ``n_layers`` layers and final norm
+        again (after the caller re-placed its parameters, e.g. under a
+        sharding plan), so the draft runs on the placed parameters and not
+        on stale ones."""
+        model = self.model
         model.embed = lm.embed
         model.layers = torch.nn.ModuleList(list(lm.layers)[:self.n_layers])
         model.final_norm = lm.final_norm
         model.pe = lm.pe
-        self.model = model
-        self._shapes = set()
+        self.mesh = getattr(lm.embed.weight, "device_mesh", None)
+
+    def _forward(self, tokens):
+        if self.mesh is None:
+            return self.model(tokens)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            return self.model(tokens).to_local()
 
     def _bucket(self, length: int) -> int:
         for b in self.buckets:
@@ -142,7 +159,7 @@ class DraftModel:
             padded = np.zeros((1, S), np.int64)
             padded[0, :L] = ctx
             with torch.no_grad():
-                logits = self.model(torch.from_numpy(padded).to(dev))
+                logits = self._forward(torch.from_numpy(padded).to(dev))
             row = logits[0, max(L - 1, 0)].float().cpu().numpy()
             tok = int(np.argmax(row))
             out.append(tok)

@@ -134,13 +134,33 @@ of which fails the run when wrong:
    4-token chunks (limit ``SERVE_TOL``), and the engine against the
    dense model; (f) the ``serve_lm`` example's
    ``main`` at its defaults, every request on the successor pattern.  No
-   flash kernel may launch on this path.
+   flash kernel may launch on this path;
+13. serving across devices and replicas, on phase 12's module and
+   traffic (16 prompts of 64 tokens, 32 new, pages 512 x 16): (a) the
+   engine under sharding plan ``tp`` on a 1 x 1 ``DeviceMesh`` over NCCL
+   (DTensor parameters and pages), its B 8 streams and B 8
+   teacher-forced logits bitwise equal to phase 12's one-device engine,
+   and its decode tokens/s, host time a step, idle share of a profiled
+   step and launches a step beside the one-device engine's; (b) decode
+   in 2 and 4 pipeline microbatches (``pp_stages``), its B 8 streams
+   identical to phase 12's; (c) one module
+   serving three replicas (a prefill replica and two decoders) through
+   ``ReplicaRouter`` and ``ThreadedClusterDriver``: plain, with a decoder
+   killed mid-stream (``fail_replica``), and with a decoder drained and
+   its live streams migrated (``migrate_out``): tokens/s, TTFT and
+   per-token percentiles, peak memory, launches a router step, and the
+   prefill replica decoding nothing; every stream of (a)-(c) held to each
+   request alone by (e)'s contract; (d) a running sequence's bf16 pages
+   through ``extract_sequence`` -> ``send_snapshot``/``recv_snapshot`` ->
+   ``restore_sequence`` into a second engine, bitwise, its continued
+   stream identical.  No flash kernel may launch.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 ``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
 ``{"model_parallel": ...}``, a JSON line ``{"pipeline": ...}``, a JSON
 line ``{"long_context": ...}``, a JSON line ``{"gspmd": ...}``, a JSON
-line ``{"serving": ...}``, the card's ``name, power.limit`` line, a
+line ``{"serving": ...}``, a JSON line ``{"serving_cluster": ...}``,
+the card's ``name, power.limit`` line, a
 JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1029,7 +1049,7 @@ def phase_convnets(torch, log, comm, batch):
     import torch.nn.functional as F
 
     from chainermn_tpu_torch import create_multi_node_optimizer
-    from chainermn_tpu_torch.examples.train_imagenet import dropout_seed
+    from chainermn_tpu_torch.examples.train_imagenet import DROPOUT_SEED
     from chainermn_tpu_torch.models import AlexNet, GoogLeNet, NiN
 
     out = {}
@@ -1039,12 +1059,10 @@ def phase_convnets(torch, log, comm, batch):
         opt = create_multi_node_optimizer(
             torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9), comm)
         opt.init()
-        rng = torch.Generator(device="cuda")
-        step = opt.make_train_step(lambda b: F.cross_entropy(
-            model(b[0], train=True, rng=rng), b[1]))
+        step = opt.make_train_step(lambda b, rng: F.cross_entropy(
+            model(b[0], train=True, rng=rng), b[1]), rng=DROPOUT_SEED)
         losses, times = [], []
         for i in range(CONVNET_STEPS):
-            rng.manual_seed(dropout_seed(i, comm.rank))
             torch.cuda.synchronize()
             t = time.perf_counter()
             losses.append(step(batch).item())
@@ -2095,9 +2113,11 @@ def serve_prompts(n, length, vocab, dup, seed=0):
             for _ in range(n)]
 
 
-def serve_point(torch, lm, prompts, new_tokens, bs, *, spec_tokens, **ecfg):
+def serve_point(torch, lm, prompts, new_tokens, bs, *, spec_tokens,
+                engine_kw=None, pp_stages=1, **ecfg):
     """One measured serving run (bench_serve's sweep point): a fresh engine
-    at decode batch ``bs``, a warm-up request, then every prompt through
+    at decode batch ``bs`` (``engine_kw``: a plan and mesh; ``pp_stages``:
+    decode microbatches), a warm-up request, then every prompt through
     the frontend at once.  Per-token gaps, TTFT (submit to first token),
     decode tokens/s over the run's wall time, prefill tokens/s over the
     time spent in prefill calls, peak memory; the streams."""
@@ -2107,7 +2127,8 @@ def serve_point(torch, lm, prompts, new_tokens, bs, *, spec_tokens, **ecfg):
 
     cfg = dict(max_batch=bs)
     cfg.update(ecfg)
-    engine = InferenceEngine(lm, EngineConfig(**cfg))
+    engine = InferenceEngine(lm, EngineConfig(**cfg), **(engine_kw or {}))
+    engine.pp_stages = pp_stages
     sched = ContinuousBatchingScheduler(engine, spec_tokens=spec_tokens)
     fe = ServeFrontend(sched, max_queue=len(prompts) + 1)
     fe.submit(prompts[0], new_tokens, sampling=SamplingParams())
@@ -2182,7 +2203,7 @@ def serve_point(torch, lm, prompts, new_tokens, bs, *, spec_tokens, **ecfg):
     return row
 
 
-def decode_step_fn(torch, lm, prompts, bs, **ecfg):
+def decode_step_fn(torch, lm, prompts, bs, engine_kw=None, **ecfg):
     """``bs`` prompts prefilled on a fresh engine; returns a function
     running one decode step over them (each call rewrites the same slot)."""
     import numpy as np
@@ -2191,7 +2212,7 @@ def decode_step_fn(torch, lm, prompts, bs, **ecfg):
 
     cfg = dict(max_batch=bs)
     cfg.update(ecfg)
-    engine = InferenceEngine(lm, EngineConfig(**cfg))
+    engine = InferenceEngine(lm, EngineConfig(**cfg), **(engine_kw or {}))
     sids, lens, toks = list(range(bs)), [], []
     for sid, p in zip(sids, prompts[:bs]):
         engine.kv.allocate(sid, len(p))
@@ -2243,11 +2264,13 @@ def host_profile(fn, n=5, top=14):
     return total, rows[:top]
 
 
-def teacher_forced(torch, lm, streams, prompts, how, **ecfg):
+def teacher_forced(torch, lm, streams, prompts, how, engine_kw=None,
+                   **ecfg):
     """fp32 logits predicting every token of each ``prompts[i] +
-    streams[i]``, fed through the engine: ``how`` is ``("decode", B)``
-    (rows decoded B at a time) or ``("chunk", T)`` (T tokens a step, 8
-    rows at a time).  Returns one (len(stream), V) array a request."""
+    streams[i]``, fed through the engine (``engine_kw``: a plan and
+    mesh): ``how`` is ``("decode", B)`` (rows decoded B at a time) or
+    ``("chunk", T)`` (T tokens a step, 8 rows at a time).  Returns one
+    (len(stream), V) array a request."""
     import numpy as np
 
     from chainermn_tpu_torch.serving import EngineConfig, InferenceEngine
@@ -2260,7 +2283,8 @@ def teacher_forced(torch, lm, streams, prompts, how, **ecfg):
         ids = list(range(g0, min(n, g0 + group)))
         cfg = dict(max_batch=len(ids))
         cfg.update(ecfg)
-        engine = InferenceEngine(lm, EngineConfig(**cfg))
+        engine = InferenceEngine(lm, EngineConfig(**cfg),
+                                 **(engine_kw or {}))
         rows = {i: [] for i in ids}
         for i in ids:
             engine.kv.allocate(i, len(prompts[i]))
@@ -2292,29 +2316,39 @@ def _rel_rows(a, b):
     return float(np.max(np.abs(a - b).max(-1) / np.abs(b).max(-1)))
 
 
-def phase_serving_contracts(torch, lm, groups, log):
+def phase_serving_contracts(torch, lm, groups, log, memo=None, phase="12e"):
     """(e): each group is ``name -> (prompts, reference streams, {run:
     streams}, engine config)``.  Every run's streams are held against the
     group's reference streams; a divergence must be explained by the
     reference stream's top-2 margin there against the teacher-forced logit
     differences between step shapes (decode at B 1 and B 8, 4-token
     chunks) on the reference streams; the engine is held against the dense
-    model."""
+    model.  ``memo`` keeps each group's teacher-forced logits by name, so
+    a later phase holds its runs to the same references without
+    recomputing them."""
     import numpy as np
 
     out, bad = {"tol": SERVE_TOL}, []
+    memo = {} if memo is None else memo
     for group, (prompts, refs, runs, ecfg) in groups.items():
-        tf1, tf8, tfc = (teacher_forced(torch, lm, refs, prompts, how, **ecfg)
-                         for how in (("decode", 1), ("decode", 8),
-                                     ("chunk", 4)))
-        diffs = [max(_rel_rows(a, b), _rel_rows(c, b))
-                 for a, b, c in zip(tf8, tf1, tfc)]
-        dense = []
-        with torch.no_grad():
-            for p, s, ref in zip(prompts, refs, tf1):
-                toks = torch.tensor([p + s[:-1]], device=lm.device)
-                d = lm(toks)[0, len(p) - 1:].float().cpu().numpy()
-                dense.append(_rel_rows(d, ref))
+        if group not in memo:
+            tf1, tf8, tfc = (teacher_forced(torch, lm, refs, prompts, how,
+                                            **ecfg)
+                             for how in (("decode", 1), ("decode", 8),
+                                         ("chunk", 4)))
+            dense = []
+            with torch.no_grad():
+                for p, s, ref in zip(prompts, refs, tf1):
+                    toks = torch.tensor([p + s[:-1]], device=lm.device)
+                    d = lm(toks)[0, len(p) - 1:].float().cpu().numpy()
+                    dense.append(_rel_rows(d, ref))
+            memo[group] = (refs, tf1, tf8,
+                           [max(_rel_rows(a, b), _rel_rows(c, b))
+                            for a, b, c in zip(tf8, tf1, tfc)], dense)
+        memo_refs, tf1, tf8, diffs, dense = memo[group]
+        if memo_refs != refs:
+            raise AssertionError(f"phase {phase}: group {group} reuses "
+                                 "teacher-forced logits of other streams")
         g = out[group] = {"teacher_forced_max_rel": max(diffs),
                           "oracle_max_rel": max(dense), "runs": {}}
         for name, streams in runs.items():
@@ -2349,15 +2383,17 @@ def phase_serving_contracts(torch, lm, groups, log):
             bad.append(f"{group}: engine vs the dense model "
                        f"{max(dense):.3g}")
     if bad:
-        raise AssertionError("phase 12e: " + "; ".join(bad))
+        raise AssertionError(f"phase {phase}: " + "; ".join(bad))
     return out
 
 
-def phase_serving(torch, K, log, card):
+def phase_serving(torch, K, log, card, keep=None):
     """Phase 12: (a) the bench_serve sweep, (b) shared prefixes against no
     prefix cache, (c) the model draft and int8 pages, (d) long prompts in
     slices, (e) the contracts, (f) the serve_lm example; no flash kernel
-    may launch."""
+    may launch.  ``keep`` (a dict) receives what phase 13 is held to: the
+    module, the prompts, the streams and phase 12's teacher-forced
+    logits."""
     import numpy as np
 
     from chainermn_tpu_torch.examples import serve_lm
@@ -2492,12 +2528,18 @@ def phase_serving(torch, K, log, card):
     alone8 = [eng8.generate(p, N) for p in prompts]
     pinned_run = serve_point(torch, lm, prompts, N, 8, spec_tokens=0,
                              **pinned)["streams"]
+    memo = {}
     out["contracts"] = phase_serving_contracts(torch, lm, {
         "alone": (prompts, alone, runs, geo),
         "prefix": (dup_prompts, dup_base,
                    {"prefix_cached": prefix_cached}, geo),
         "pinned_B8": (prompts, alone8, {"pinned_B8": pinned_run}, pinned),
-    }, log)
+    }, log, memo=memo)
+    if keep is not None:
+        keep.update(lm=lm, prompts=prompts, geo=geo, alone=alone, runs=runs,
+                    memo=memo, row_b8=next(
+                        r for r in sweep if r["batch_size"] == 8
+                        and r["spec_tokens"] == 0))
 
     # (f)
     t = time.perf_counter()
@@ -2521,6 +2563,314 @@ def phase_serving(torch, K, log, card):
                              f"serving path: {launches}")
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 12: flash launches {launches}; {out['wall_s']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: TP decode, pipelined decode microbatches, the in-process
+# serving cluster and the KV snapshot, on phase 12's configuration
+# ---------------------------------------------------------------------------
+
+# (c) three replicas on one card sharing phase 12's module: one prefill
+# replica (every prompt takes the disaggregated path) and two decoders.
+CLUSTER_ROLES = ("prefill", "decode", "decode")
+CLUSTER_EVENT_TOKENS = 8     # the event lands once a victim stream has these
+
+
+def _stamps_row(torch, handles, stamps, t0, wall):
+    """tokens/s, TTFT and per-token percentiles, peak memory of a run."""
+    gaps = sorted(b - a for ts in stamps.values() for a, b in zip(ts, ts[1:]))
+    ttft = sorted(ts[0] - t0 for ts in stamps.values())
+
+    def pct(xs, q):
+        return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3 if xs else None
+
+    return {"tokens_per_s": sum(len(h.tokens) for h in handles) / wall,
+            "ttft_p50_ms": pct(ttft, 0.5), "ttft_p99_ms": pct(ttft, 0.99),
+            "p50_token_ms": pct(gaps, 0.5), "p99_token_ms": pct(gaps, 0.99),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "wall_s": wall}
+
+
+def _cluster(lm, n_prompts, geo):
+    from chainermn_tpu_torch.serving import EngineConfig, InferenceEngine
+    from chainermn_tpu_torch.serving.cluster import (HeartbeatMonitor,
+                                                     Replica, ReplicaRouter)
+
+    reps = [Replica(i, InferenceEngine(lm, EngineConfig(max_batch=8, **geo)),
+                    role=role, max_queue=n_prompts + 1)
+            for i, role in enumerate(CLUSTER_ROLES)]
+    health = HeartbeatMonitor(list(range(len(reps))), miss_after_s=1e9)
+    return reps, ReplicaRouter(reps, prefill_threshold=1, health=health)
+
+
+def cluster_run(torch, lm, prompts, new_tokens, geo, event=None):
+    """Every prompt through a three-replica router stepped by
+    ``ThreadedClusterDriver`` (after one warm-up request); ``event``
+    ``"fail"`` kills decode replica 1 once it holds a stream with
+    ``CLUSTER_EVENT_TOKENS`` tokens, ``"migrate"`` drains it and moves its
+    live streams to replica 2.  Returns (row, streams)."""
+    from chainermn_tpu_torch.serving.cluster import ThreadedClusterDriver
+
+    reps, router = _cluster(lm, len(prompts), geo)
+    router.submit(prompts[0], new_tokens)
+    router.run_until_idle()
+    stamps = {}
+
+    def on_token(rid, tok):
+        stamps.setdefault(rid, []).append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    moved = 0
+    with ThreadedClusterDriver(router) as drv:
+        handles = [router.submit(p, new_tokens, on_token=on_token)
+                   for p in prompts]
+        if event is not None:
+            deadline = time.monotonic() + 120
+            while not any(h.replica_id == 1 and not h.done
+                          and len(h.tokens) >= CLUSTER_EVENT_TOKENS
+                          for h in handles):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase 13c: no stream reached "
+                                         f"replica 1 before the {event}")
+                router.step(drive_replicas=False)
+                time.sleep(0.0005)
+            if event == "fail":
+                moved = router.fail_replica(1, "phase 13 kill")
+            else:
+                router.drain(1)
+                moved = router.migrate_out(1)
+        drv.run_until_idle(timeout_s=300.0)
+    wall = time.perf_counter() - t0
+    row = _stamps_row(torch, handles, stamps, t0, wall)
+    row.update(event=event, moved=moved,
+               finished=sum(h.status == "finished" for h in handles),
+               failovers=sum(h.failovers for h in handles),
+               migrations=sum(h.migrations for h in handles),
+               prefill_replica_decoded=reps[0].engine._tokens_decoded,
+               replicas=[h.replica_id for h in handles])
+    bad = []
+    if row["finished"] != len(prompts):
+        bad.append(f"{len(prompts) - row['finished']} requests unfinished")
+    if row["prefill_replica_decoded"]:
+        bad.append(f"the prefill replica decoded "
+                   f"{row['prefill_replica_decoded']} tokens")
+    if event is not None and not moved:
+        bad.append(f"the {event} moved no stream")
+    for r in reps:
+        if r.alive:
+            r.engine.kv.assert_consistent()
+    if bad:
+        raise AssertionError(f"phase 13c ({event}): " + "; ".join(bad))
+    return row, [list(h.tokens) for h in handles]
+
+
+class _InProcessPlane:
+    """An object plane inside one process: frames queued by tag."""
+
+    def __init__(self):
+        self.frames = {}
+
+    def send(self, obj, dest, tag=0):
+        self.frames.setdefault(tag, []).append(obj)
+
+    def recv(self, source, tag=0, timeout_ms=None):
+        return self.frames[tag].pop(0)
+
+
+def phase_snapshot(torch, lm, prompt, want, geo, new_tokens, log):
+    """(d): a running sequence's bf16 pages extracted after 8 decode
+    steps, sent and received through an in-process plane, restored into a
+    second engine: the pages bitwise equal and the continued stream equal
+    to the uninterrupted one."""
+    from chainermn_tpu_torch.serving import (EngineConfig, InferenceEngine,
+                                             SamplingParams)
+    from chainermn_tpu_torch.serving.cluster import (extract_sequence,
+                                                     recv_snapshot,
+                                                     restore_sequence,
+                                                     send_snapshot)
+
+    src = InferenceEngine(lm, EngineConfig(max_batch=8, **geo))
+    dst = InferenceEngine(lm, EngineConfig(max_batch=8, **geo))
+    sp = SamplingParams()
+    src.kv.allocate("s", len(prompt))
+    toks = [src.sample(src.prefill(prompt, "s"), sp, len(prompt))]
+    cur = len(prompt)
+    for _ in range(8):
+        src.kv.extend("s", cur + 1)
+        toks.append(src.sample(src.decode([toks[-1]], ["s"], [cur])[0], sp,
+                               cur + 1))
+        cur += 1
+    t = time.perf_counter()
+    snap = extract_sequence(src, "s", context=prompt + toks[:-1],
+                            prompt_len=len(prompt))
+    plane = _InProcessPlane()
+    send_snapshot(plane, 1, snap)
+    got = recv_snapshot(plane, 0)
+    restore_sequence(dst, got, "t")
+    torch.cuda.synchronize()
+    move_ms = (time.perf_counter() - t) * 1e3
+    back = extract_sequence(dst, "t")
+    equal = all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                for a, b in zip(snap.pages, back.pages))
+    while len(toks) < new_tokens:
+        dst.kv.extend("t", cur + 1)
+        toks.append(dst.sample(dst.decode([toks[-1]], ["t"], [cur])[0], sp,
+                               cur + 1))
+        cur += 1
+    out = {"pages": snap.n_pages, "leaves": len(snap.pages),
+           "mib": snap.nbytes() / 2**20, "dtype": snap.dtypes[0],
+           "pages_bitwise": equal, "stream_identical": toks == want,
+           "move_ms": move_ms}
+    log(f"serve snapshot: {out['pages']} pages x {out['leaves']} leaves "
+        f"({out['mib']:.2f} MiB {out['dtype']}) extract -> send -> recv -> "
+        f"restore {move_ms:.1f} ms; pages bitwise {equal}; continued "
+        f"stream identical {toks == want}")
+    if not (equal and toks == want):
+        raise AssertionError(f"phase 13d: pages bitwise {equal}, stream "
+                             f"identical {toks == want}")
+    return out
+
+
+def phase_serving_cluster(torch, K, log, card, keep):
+    """Phase 13 on phase 12's module and traffic: (a) TP decode under plan
+    ``tp`` on a 1 x 1 mesh, held bitwise to phase 12's one-device engine;
+    (b) ``pp_stages`` 2 and 4, streams identical to ``pp_stages`` 1; (c)
+    the three-replica cluster, plain, with a failover and with a live
+    migration; (d) the KV snapshot.  Every stream is held to each request
+    alone on one engine (phase 12 (e)'s contract); no flash kernel may
+    launch."""
+    import copy
+
+    import numpy as np
+
+    import chainermn_tpu_torch as cmn
+    from chainermn_tpu_torch.parallel.sharding import build_device_mesh
+
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    lm, prompts, geo = keep["lm"], keep["prompts"], keep["geo"]
+    alone, runs, row12 = keep["alone"], keep["runs"], keep["row_b8"]
+    N = SERVE["new_tokens"]
+    out = {"card": card}
+
+    # (a)
+    comm = cmn.create_communicator("pure_nccl", device="cuda")
+    mesh = build_device_mesh(comm, (1,), ("model",), device="cuda")
+    tp_lm = copy.deepcopy(lm)
+    tp = dict(engine_kw=dict(plan="tp", mesh=mesh))
+    row = serve_point(torch, tp_lm, prompts, N, 8, spec_tokens=0, **tp, **geo)
+    tp_streams = row.pop("streams")
+    tf_tp = teacher_forced(torch, tp_lm, alone, prompts, ("decode", 8), **tp,
+                           **geo)
+    tf12 = keep["memo"]["alone"][2]
+    tf_equal = all(np.array_equal(a, b) for a, b in zip(tf_tp, tf12))
+    steps = {}
+    for name, mod, kw in (("plain", lm, {}), ("tp", tp_lm, tp)):
+        step = decode_step_fn(torch, mod, prompts, 8, **kw, **geo)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(10):
+            t = time.perf_counter()
+            step()
+            walls.append((time.perf_counter() - t) * 1e3)
+        wall, busy, kinds = profile_step(torch, step, log, kind_of=serve_kind,
+                                         what=f"decode step B=8 ({name})")
+        steps[name] = {"step_ms": float(np.median(walls)),
+                       "host_ms": host_profile(step)[0],
+                       "profile_wall_ms": wall, "busy_ms": busy,
+                       "idle_share": 1 - busy / wall,
+                       "launches": count_launches(torch, step)}
+    torch.distributed.destroy_process_group()
+    local_kv = list(tp_lm.layers[0].attention.key.weight.to_local().shape)
+    out["tp"] = {"mesh": "1 (model)", "row": row, "phase12_row": {
+        k: row12[k] for k in ("tokens_per_s", "p50_token_ms", "p99_token_ms",
+                              "ttft_p50_ms", "launches_per_decode_step")},
+        "streams_bitwise": tp_streams == runs["B8_spec0"],
+        "teacher_forced_b8_bitwise": tf_equal, "steps": steps,
+        "key_weight_local": local_kv}
+    log(f"serve tp (plan tp, 1 x 1 mesh): {row['tokens_per_s']:.1f} tokens/s "
+        f"at B=8 against phase 12's {row12['tokens_per_s']:.1f}; per-token "
+        f"p50 {row['p50_token_ms']:.2f} ms vs {row12['p50_token_ms']:.2f}; "
+        f"decode step {steps['tp']['step_ms']:.1f} ms vs "
+        f"{steps['plain']['step_ms']:.1f}, host under cProfile "
+        f"{steps['tp']['host_ms']:.1f} ms vs {steps['plain']['host_ms']:.1f}, "
+        f"idle share {steps['tp']['idle_share']:.3f} vs "
+        f"{steps['plain']['idle_share']:.3f}, launches a step "
+        f"{steps['tp']['launches']} vs {steps['plain']['launches']}; "
+        f"streams bitwise {tp_streams == runs['B8_spec0']}, B=8 "
+        f"teacher-forced logits bitwise {tf_equal}")
+    if not (tp_streams == runs["B8_spec0"] and tf_equal):
+        raise AssertionError("phase 13a: the TP engine on a 1 x 1 mesh is "
+                             "not bitwise the one-device engine")
+    del tp_lm, tf_tp
+    torch.cuda.empty_cache()
+
+    # (b)
+    pp = {}
+    for stages in (2, 4):
+        r = serve_point(torch, lm, prompts, N, 8, spec_tokens=0,
+                        pp_stages=stages, **geo)
+        pp[f"pp{stages}"] = r.pop("streams")
+        out[f"pp{stages}"] = r
+        log(f"serve pp_stages={stages}: {r['tokens_per_s']:.1f} tokens/s at "
+            f"B=8 (pp_stages 1: {row12['tokens_per_s']:.1f}), decode shapes "
+            f"{r['shapes']}, streams identical to pp_stages 1 "
+            f"{pp[f'pp{stages}'] == runs['B8_spec0']}")
+        if pp[f"pp{stages}"] != runs["B8_spec0"]:
+            raise AssertionError(
+                f"phase 13b: the pp_stages={stages} streams differ from "
+                f"pp_stages 1's")
+
+    # (c)
+    cluster = {}
+    for event in (None, "fail", "migrate"):
+        r, streams = cluster_run(torch, lm, prompts, N, geo, event)
+        name = event or "plain"
+        cluster[name] = streams
+        out[f"cluster_{name}"] = r
+        log(f"serve cluster {name}: {r['tokens_per_s']:.1f} tokens/s, TTFT "
+            f"p50 {r['ttft_p50_ms']:.1f} ms p99 {r['ttft_p99_ms']:.1f} ms, "
+            f"per-token p50 {r['p50_token_ms']:.2f} ms p99 "
+            f"{r['p99_token_ms']:.2f} ms, peak {r['peak_gib']:.2f} GiB, "
+            f"moved {r['moved']}, failovers {r['failovers']}, migrations "
+            f"{r['migrations']}, prefill replica decoded "
+            f"{r['prefill_replica_decoded']}")
+    reps, router = _cluster(lm, len(prompts), geo)
+    handles = [router.submit(p, N) for p in prompts]
+    while not all(h.replica_id in (1, 2) and len(h.tokens) >= 2
+                  for h in handles):
+        router.step()
+    out["cluster_launches_a_step"] = count_launches(torch, router.step)
+    router.run_until_idle()
+    log(f"serve cluster: {out['cluster_launches_a_step']} launches a router "
+        f"step with both decode replicas at B=8 (one engine's decode step: "
+        f"{row12['launches_per_decode_step']})")
+    out["phase12_b8"] = {k: row12[k] for k in (
+        "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "p50_token_ms",
+        "p99_token_ms", "peak_gib", "launches_per_decode_step")}
+
+    runs13 = dict(pp, tp=tp_streams,
+                  **{f"cluster_{k}": v for k, v in cluster.items()})
+    out["contracts"] = phase_serving_contracts(
+        torch, lm, {"alone": (prompts, alone, runs13, geo)}, log,
+        memo=keep["memo"], phase="13")
+
+    # (d)
+    out["snapshot"] = phase_snapshot(torch, lm, prompts[0], alone[0], geo, N,
+                                     log)
+
+    launches = dict(K.LAUNCHES)
+    out["flash_launches"] = launches
+    if any(launches.values()):
+        raise AssertionError(f"phase 13: flash kernels launched on the "
+                             f"serving path: {launches}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 13: flash launches {launches}; {out['wall_s']:.1f}s")
     return out
 
 
@@ -2583,7 +2933,10 @@ def main(argv=None) -> int:
     pipeline = phase_pipeline(torch, log, card)
     long_context = phase_long_context(torch, K, log, card)
     gspmd = phase_gspmd(torch, K, log, card, train, repo)
-    serving = phase_serving(torch, K, log, card)
+    keep = {}
+    serving = phase_serving(torch, K, log, card, keep)
+    serving_cluster = phase_serving_cluster(torch, K, log, card, keep)
+    del keep
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -2607,6 +2960,7 @@ def main(argv=None) -> int:
     print(json.dumps({"long_context": long_context}), flush=True)
     print(json.dumps({"gspmd": gspmd}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"serving_cluster": serving_cluster}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

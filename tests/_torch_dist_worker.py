@@ -65,6 +65,97 @@ def _allreduce(comm_name, bucket_bytes, dtype_name, rank, size):
                          comm.intra_size]}
 
 
+def synthetic_grad_tree(n_leaves, total_bytes):
+    """The fp32 shapes and values of the reference's
+    ``packing.synthetic_grad_tree(n_leaves, total_bytes, ("float32",))``
+    (the port has no copy yet), built with numpy."""
+    weights = [(i % 7) + 1 for i in range(n_leaves)]
+    wsum = sum(weights) or 1
+    tree = {}
+    for i in range(n_leaves):
+        if i == 0:
+            shape = ()
+        else:
+            elems = max(1, int(total_bytes * weights[i] / wsum) // 4)
+            shape = ((elems // 2, 2) if i % 5 == 0 and elems % 2 == 0
+                     else (elems,))
+        size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        vals = (np.arange(size, dtype=np.float32) % 97) / 32.0 + (i % 13) / 8.0
+        tree[f"leaf_{i:03d}"] = vals.reshape(shape).astype(np.float32)
+    return tree
+
+
+def _scatter_inter(rank, size):
+    """The hierarchical communicator with ``scatter_inter`` at 2 x 2
+    against ``naive`` (both unbucketed, as the reference's test) on
+    rank-scaled copies of the synthetic tree; returns the worst
+    difference between the two and against the numpy mean."""
+    from chainermn_tpu_torch import create_communicator
+
+    tree = synthetic_grad_tree(6, 64 * 1024)
+    base = create_communicator("naive", device="cpu", bucket_bytes=0)
+    scat = create_communicator("hierarchical", device="cpu", bucket_bytes=0,
+                               scatter_inter=True, inter_size=2,
+                               intra_size=size // 2)
+    assert scat.scatter_inter and (scat.inter_size, scat.intra_size) == (
+        2, size // 2)
+    mine = [np.asarray(v * (1.0 + rank) + rank, np.float32)
+            for v in tree.values()]
+    out_b = base.allreduce_grad([torch.from_numpy(v.copy()) for v in mine])
+    out_s = scat.allreduce_grad([torch.from_numpy(v.copy()) for v in mine])
+    mean = [np.mean([v * (1.0 + r) + r for r in range(size)], axis=0)
+            for v in tree.values()]
+    scat.barrier()
+    return {
+        "vs_naive": max(float(np.abs(s.numpy() - b.numpy()).max())
+                        for s, b in zip(out_s, out_b)),
+        "vs_mean": max(float(np.abs(s.numpy() - m).max())
+                       for s, m in zip(out_s, mean)),
+        "shapes": [list(s.shape) for s in out_s],
+    }
+
+
+def aux_problem():
+    """The has_aux problem: a linear model and an 8-row batch."""
+    rs = np.random.RandomState(0)
+    x = rs.randn(8, 4).astype(np.float32)
+    y = rs.randn(8, 1).astype(np.float32)
+    w = rs.randn(4, 1).astype(np.float32)
+    return x, y, w
+
+
+def _aux(rank, size, args):
+    """``make_train_step(has_aux=True)`` at ``n_accum`` 1 and 2: this
+    rank's aux, loss and weights after each step."""
+    from chainermn_tpu_torch import (create_communicator,
+                                     create_multi_node_optimizer)
+
+    x, y, w = aux_problem()
+    comm = create_communicator("naive", device="cpu")
+    out = {}
+    for n_accum in (1, 2):
+        wp = torch.nn.Parameter(torch.from_numpy(w.copy()))
+        bp = torch.nn.Parameter(torch.zeros(1))
+        mno = create_multi_node_optimizer(torch.optim.SGD([wp, bp], lr=0.1),
+                                          comm)
+        mno.init()
+
+        def loss_fn(b):
+            loss = ((b[0] @ wp + bp - b[1]) ** 2).mean()
+            return loss, {"l2": (wp * wp).sum(), "x0": b[0][0, 0]}
+
+        step = mno.make_train_step(loss_fn, n_accum=n_accum, has_aux=True)
+        runs = []
+        for _ in range(2):
+            loss, aux = step((torch.from_numpy(x), torch.from_numpy(y)))
+            runs.append({"loss": float(loss),
+                         "aux": {k: v.numpy().tolist()
+                                 for k, v in aux.items()},
+                         "w": wp.detach().numpy().ravel().tolist()})
+        out[str(n_accum)] = runs
+    return out
+
+
 def _sgd_step(comm_name, rank, size):
     """Three SGD steps of the multi-node optimizer on the global batch;
     returns the final weights (every rank must hold the same)."""
@@ -634,6 +725,10 @@ def run(kind: str, rank: int, size: int, init_file: str, out_dir: str,
                              args.get("dtype"), rank, size)
         elif kind == "sgd":
             res = _sgd_step(args["comm"], rank, size)
+        elif kind == "scatter_inter":
+            res = _scatter_inter(rank, size)
+        elif kind == "aux":
+            res = _aux(rank, size, args)
         elif kind == "broadcast_params":
             res = _broadcast_params(rank, size)
         elif kind == "functions":

@@ -200,3 +200,68 @@ def test_one_rank_allreduce_runs_no_collective_and_keeps_the_cast():
     for g, w in zip(grads, want):
         assert g.dtype == torch.float32 and torch.equal(g, w)
     assert comm._packers == {}
+
+
+def test_scatter_inter_hierarchical_parity(tmp_path):
+    """The reference's ``test_scatter_inter_hierarchical_parity`` at 4
+    gloo ranks split 2 x 2: the scatter-decomposed inter leg gives
+    ``naive``'s allreduce within 1e-6 over the six-leaf fp32 synthetic
+    tree (the worker's numpy copy of the tree is the reference's)."""
+    ref = jax_packing.synthetic_grad_tree(6, 64 * 1024, dtypes=("float32",))
+    mine = worker.synthetic_grad_tree(6, 64 * 1024)
+    assert list(mine) == list(ref)
+    for k in ref:
+        np.testing.assert_array_equal(mine[k], np.asarray(ref[k]))
+    res = _spawn("scatter_inter", 4, tmp_path)
+    for out in res:
+        assert out["vs_naive"] <= 1e-6 and out["vs_mean"] <= 1e-5, out
+        assert out["shapes"] == [list(np.shape(v)) for v in ref.values()]
+
+
+@pytest.mark.parametrize("name", ["naive", "flat", "xla_ici",
+                                  "two_dimensional", "single_host"])
+def test_scatter_inter_rejected_elsewhere(name):
+    with pytest.raises(ValueError, match="scatter_inter"):
+        create_communicator(name, device="cpu", scatter_inter=True)
+    comm = create_communicator("hierarchical", device="cpu",
+                               scatter_inter=True)
+    assert comm.scatter_inter
+
+
+@pytest.mark.parametrize("env", [None, "0", "65536", "-5", "lots", " 128 "])
+def test_bucket_bytes_env_resolution_matches_reference(devices8, monkeypatch,
+                                                       env):
+    """``CHAINERMN_TPU_BUCKET_BYTES`` resolves as the reference's
+    ``resolve_bucket_bytes`` on the same environment (``0`` is
+    unbucketed; a constructor value beats the variable)."""
+    from chainermn_tpu.communicators import build_mesh
+    from chainermn_tpu.communicators import (
+        create_communicator as jax_create)
+
+    mesh24 = build_mesh(inter_size=2, intra_size=4, devices=devices8)
+    assert packing.ENV_BUCKET_BYTES == jax_packing.ENV_BUCKET_BYTES
+    if env is None:
+        monkeypatch.delenv(packing.ENV_BUCKET_BYTES, raising=False)
+    else:
+        monkeypatch.setenv(packing.ENV_BUCKET_BYTES, env)
+    ref = jax_create("naive", mesh=mesh24)
+    port = create_communicator("naive", device="cpu")
+    assert port.resolve_bucket_bytes() == ref.resolve_bucket_bytes()
+    assert create_communicator(
+        "naive", device="cpu", bucket_bytes=123).resolve_bucket_bytes() == \
+        jax_create("naive", mesh=mesh24,
+                   bucket_bytes=123).resolve_bucket_bytes() == 123
+
+
+def test_bucket_bytes_env_zero_runs_unbucketed(monkeypatch):
+    """With the variable at 0 a multi-tensor ``allreduce_grad`` builds no
+    bucket plan; unset, it builds one at the 4 MiB default."""
+    grads = [torch.from_numpy(g.copy()) for g in worker.rank_grads(0)]
+    monkeypatch.setenv(packing.ENV_BUCKET_BYTES, "0")
+    comm = create_communicator("naive", device="cpu", comm_dtype="int8")
+    comm.allreduce_grad(grads)
+    assert comm.resolve_bucket_bytes() == 0 and not comm._packers
+    monkeypatch.delenv(packing.ENV_BUCKET_BYTES)
+    comm.allreduce_grad(grads)
+    assert comm.resolve_bucket_bytes() == packing.DEFAULT_BUCKET_BYTES
+    assert [k[0] for k in comm._packers] == [packing.DEFAULT_BUCKET_BYTES]

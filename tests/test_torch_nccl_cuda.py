@@ -619,3 +619,97 @@ def test_gspmd_plans_across_cards_match_one_card(gspmd_cards, gspmd_one_card,
         # the sharded weights and their moments take a quarter a card
         full = gspmd_cards[0]["plans"]["zero"]["param_bytes"]
         assert runs[0]["param_bytes"] < 0.4 * full
+
+
+# Serving across the cards (one spawn of ``_torch_serve_worker``'s
+# ``serve_one_card`` on one card, then ``serve_cards`` across four):
+# phase 4's LM widths in bf16 at chip_smoke.py's serving geometry.  The
+# TP engine (plan ``tp``, model = 4) on 16 requests of 64 tokens, 32 new,
+# B 8; SP prefill at sp 2 and 4 on 4 prompts of 1024 tokens in slices of
+# 256.  The row-parallel sums and the sharded K/V projections round in
+# other orders than one card's GEMMs, so streams are held by phase 12
+# (e)'s contract: teacher-forced logits (fed the one-card streams) within
+# 2^-5 of each row's largest |logit|, and a stream may leave the one-card
+# stream only where that stream's top-2 margin is below its
+# teacher-forced difference.
+SERVE_TOL = 2.0 ** -5
+
+
+@pytest.fixture(scope="module")
+def serve_one_card(tmp_path_factory):
+    import _torch_serve_worker as serve_worker
+
+    _four()
+    tmp = tmp_path_factory.mktemp("serve_one_card")
+    res = serve_worker.spawn("serve_one_card", 1, tmp,
+                             timeout_s=JOIN_TIMEOUT_S)[0]
+    return res, tmp
+
+
+@pytest.fixture(scope="module")
+def serve_cards(serve_one_card, tmp_path_factory):
+    import _torch_serve_worker as serve_worker
+
+    one, _ = serve_one_card
+    tmp = tmp_path_factory.mktemp("serve_cards")
+    res = serve_worker.spawn(
+        "serve_cards", _four(), tmp, timeout_s=JOIN_TIMEOUT_S,
+        one_card={"tp": one["tp"]["streams"],
+                  "long": one["long"]["streams"]})
+    return res, tmp
+
+
+def _serving_contract(streams, refs, tf, tf_ref):
+    """Phase 12 (e)'s contract; returns (identical, max difference)."""
+    same, worst = 0, 0.0
+    for i, (s, a) in enumerate(zip(streams, refs)):
+        diff = float(np.max(np.abs(tf[i] - tf_ref[i]).max(-1)
+                            / np.abs(tf_ref[i]).max(-1)))
+        worst = max(worst, diff)
+        if s == a:
+            same += 1
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(s, a)) if x != y)
+        top = np.sort(tf_ref[i][j])[-2:]
+        margin = (top[1] - top[0]) / np.abs(tf_ref[i][j]).max()
+        assert margin < diff, (i, j, margin, diff)
+    assert worst <= SERVE_TOL, worst
+    return same, worst
+
+
+def _npz(path):
+    with np.load(path) as f:
+        return [f[f"arr_{i}"] for i in range(len(f.files))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tp", "sp2", "sp4"])
+def test_serving_across_cards_matches_one_card(serve_cards, serve_one_card,
+                                               case):
+    cards, tmp = serve_cards
+    one, tmp1 = serve_one_card
+    ref = one["tp"] if case == "tp" else one["long"]
+    tf_ref = _npz(tmp1 / f"tf_{'tp' if case == 'tp' else 'long'}_one_card.npz")
+    for r, out in enumerate(cards):
+        assert out["backend"] == "nccl"
+        run = out[case]
+        assert run["streams"] == cards[0][case]["streams"]   # lockstep
+        same, worst = _serving_contract(
+            run["streams"], ref["streams"],
+            _npz(tmp / f"tf_{case}_rank{r}.npz"), tf_ref)
+        print(f"serve {case} rank {r}: {run['tokens_per_s']:.1f} tokens/s "
+              f"(one card {ref['tokens_per_s']:.1f}), TTFT p50 "
+              f"{run['ttft_p50_ms']:.1f} ms max {run['ttft_max_ms']:.1f} "
+              f"(one card {ref['ttft_p50_ms']:.1f} / "
+              f"{ref['ttft_max_ms']:.1f}); {same}/{len(ref['streams'])} "
+              f"streams identical, teacher-forced difference {worst:.3g}")
+        if case == "tp":
+            prof = run["profile"]
+            assert run["local_kv_heads"] == 16 // len(cards)
+            print(f"serve tp rank {r}: decode step B=8 wall "
+                  f"{prof['wall_ms']:.1f} ms, device busy "
+                  f"{prof['busy_ms']:.2f} ms, NCCL {prof['nccl_ms']:.2f} ms "
+                  f"(one card: wall {one['tp']['profile']['wall_ms']:.1f}, "
+                  f"busy {one['tp']['profile']['busy_ms']:.2f})")
+        else:
+            assert run["sp_chunk_compiles"] >= 1

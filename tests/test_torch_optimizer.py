@@ -172,3 +172,88 @@ def test_broadcast_params_replicates_rank0(tmp_path):
         assert out["w"] == [1.0] * 6
         assert out["b"] == [0.0, 1.0, 2.0, 3.0]
         assert out["extra"] == [10.0, 10.0]
+
+
+def _jax_aux_run(devices, n_accum, steps=2):
+    """The reference's ``has_aux`` step on ``len(devices)`` devices over
+    the worker's problem; device 0's aux (its ``P()`` output)."""
+    import _torch_dist_worker as worker
+
+    x, y, w = worker.aux_problem()
+    mesh = build_mesh(inter_size=1, intra_size=len(devices), devices=devices)
+    mno = jax_mno(optax.sgd(0.1), jax_comm("xla_ici", mesh=mesh))
+    params = {"w": jnp.asarray(w), "b": jnp.zeros((1,), jnp.float32)}
+    state = mno.init(params)
+
+    def loss_fn(p, b):
+        loss = jnp.mean((b[0] @ p["w"] + p["b"] - b[1]) ** 2)
+        return loss, {"l2": jnp.sum(p["w"] ** 2), "x0": b[0][0, 0]}
+
+    step = mno.make_train_step(loss_fn, donate=False, has_aux=True,
+                               n_accum=n_accum)
+    runs = []
+    for _ in range(steps):
+        params, state, loss, aux = step(params, state,
+                                        (jnp.asarray(x), jnp.asarray(y)))
+        runs.append({"loss": float(loss),
+                     "aux": {k: np.asarray(v) for k, v in aux.items()},
+                     "w": np.asarray(params["w"]).ravel()})
+    return runs
+
+
+@pytest.mark.parametrize("size", [1, 2])
+def test_has_aux_matches_reference(devices8, tmp_path, size):
+    """``has_aux`` at ``n_accum`` 1 and 2 on ``size`` gloo ranks: rank 0's
+    aux (a parameter norm and a value of its microbatch, stacked over the
+    microbatches at ``n_accum`` 2), the loss and the weights equal the
+    reference's on as many devices."""
+    import _torch_dist_worker as worker
+
+    res = worker.spawn("aux", size, tmp_path)
+    for n_accum in (1, 2):
+        want = _jax_aux_run(devices8[:size], n_accum)
+        for r, out in enumerate(res):
+            for got, ref in zip(out[str(n_accum)], want):
+                np.testing.assert_allclose(got["loss"], ref["loss"], **TOL)
+                np.testing.assert_allclose(got["w"], ref["w"], **TOL)
+                np.testing.assert_allclose(got["aux"]["l2"],
+                                           ref["aux"]["l2"], **TOL)
+                assert np.shape(got["aux"]["x0"]) == ref["aux"]["x0"].shape
+                if r == 0:
+                    np.testing.assert_array_equal(got["aux"]["x0"],
+                                                  ref["aux"]["x0"])
+
+
+def test_rng_generator_contract():
+    """``rng``: ``loss_fn(batch, generator)`` gets a generator seeded per
+    (seed, step, rank, microbatch); steps and microbatches draw different
+    streams, a rerun draws the same ones, and ``setup`` takes ``rng`` and
+    ``has_aux`` (``update`` then returns ``(loss, aux)``)."""
+    from chainermn_tpu_torch.optimizers import rng_seed
+
+    def run(seed):
+        wp = torch.nn.Parameter(torch.ones(4, 1))
+        comm = create_communicator("naive", device="cpu")
+        mno = create_multi_node_optimizer(torch.optim.SGD([wp], lr=0.0),
+                                          comm)
+        draws = []
+
+        def loss_fn(b, gen):
+            assert isinstance(gen, torch.Generator)
+            draws.append(torch.rand(3, generator=gen).tolist())
+            return (b[0] @ wp).mean(), {"u": torch.tensor(draws[-1])}
+
+        mno.setup(wp, loss_fn, n_accum=2, has_aux=True, rng=seed)
+        batch = (torch.ones(4, 4),)
+        auxs = [mno.update(batch)[1]["u"] for _ in range(2)]
+        return draws, auxs
+
+    draws, auxs = run(7)
+    assert len(draws) == 4 and len({tuple(d) for d in draws}) == 4
+    assert run(7)[0] == draws and run(8)[0] != draws
+    assert [a.shape for a in auxs] == [(2, 3), (2, 3)]
+    assert auxs[1].tolist() == draws[2:]
+    g = torch.Generator().manual_seed(rng_seed(7, 1, 0, 1))
+    assert torch.rand(3, generator=g).tolist() == draws[3]
+    assert len({rng_seed(7, s, r, m) for s in range(3) for r in range(3)
+                for m in range(3)}) == 27

@@ -361,8 +361,17 @@ def test_paged_modes_refuse_what_the_reference_refuses(lm):
     with pytest.raises(ValueError, match="one token per call"):
         lm(torch.zeros(1, 2, dtype=torch.long), cache=lm.init_decode_cache(1),
            decode=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-        TransformerLM(**CFG, paged="chunk", sp_axis="sp", device="cpu")
+    # sp_axis shards the chunk step only (the reference's refusal); in
+    # chunk mode a mesh dimension name needs the mesh at the call.
+    for mode in (None, "prefill", "decode"):
+        with pytest.raises(ValueError, match="chunk step only"):
+            TransformerLM(**CFG, paged=mode, sp_axis="sp", device="cpu")
+    sp_lm = TransformerLM(**CFG, paged="chunk", sp_axis="sp", device="cpu")
+    assert sp_lm.layers[0].attention.sp_axis == "sp"
+    with pytest.raises(ValueError, match="mesh="):
+        sp_lm(torch.zeros(1, 2, dtype=torch.long), cache=cache,
+              block_tables=torch.zeros(1, 1, dtype=torch.int32),
+              seq_lens=torch.zeros(1, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -384,16 +393,39 @@ def test_entry_points_refuse_the_cpu_unless_asked(lm):
 
 
 def test_multi_device_branches_name_the_next_slice(lm):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
+    """The multi-device branches now run (tests/test_torch_serving_tp.py
+    holds them to the reference); what remains refused is the reference's
+    own refusals: a plan without a mesh, a name that is no plan, ``sp``
+    with a plan, ``sp`` not a power of two or wider than the world, and
+    (a refusal of the port's) int8 pages under a plan."""
+    with pytest.raises(ValueError, match="mesh"):
         InferenceEngine(lm, plan="tp", device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
+    with pytest.raises(TypeError, match="ShardingPlan"):
+        InferenceEngine(lm, plan=3, device="cpu")
+    with pytest.raises(KeyError, match="unknown sharding plan"):
+        InferenceEngine(lm, plan="bogus", device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        InferenceEngine(lm, EngineConfig(max_len=64, sp=2), plan="tp",
+                        device="cpu")
+    with pytest.raises(ValueError, match="power of two"):
+        make_engine(lm, sp=3)
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         make_engine(lm, sp=2)
     e = make_engine(lm)
     e.pp_stages = 2
     e.kv.allocate("a", 3)
     e.kv.allocate("b", 3)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
-        e.decode([1, 2], ["a", "b"], [2, 2])
+    e.prefill([1, 2, 3], "a")
+    e.prefill([1, 2, 4], "b")
+    e.kv.extend("a", 4)
+    e.kv.extend("b", 4)
+    split = e.decode([1, 2], ["a", "b"], [3, 3])
+    e.pp_stages = 1
+    assert e.stats()["decode_shapes"] == [(1, 1)]
+    # Per-row results; a GEMM of one row may round differently from one
+    # of two (the engine's docstring), so the rows agree to fp32 rounding.
+    np.testing.assert_allclose(split, e.decode([1, 2], ["a", "b"], [3, 3]),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_config_resolution_matches_reference(ref, lm, monkeypatch):

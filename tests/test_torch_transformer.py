@@ -198,7 +198,7 @@ def _token_by_token(model, toks, mode):
 def test_later_slices_and_missing_device_raise():
     # decode (dense KV cache) and paged are ported: fed one token a call
     # (GQA, fp32), each mode gives the reference's dense logits; sp_axis
-    # is the next serving slice.
+    # shards the chunk step only, as the reference's.
     toks, _ = _batch(rows=2)
     toks = toks[:, :8]
     jm = _jax_model(attn=False, n_kv_heads=2)
@@ -212,9 +212,12 @@ def test_later_slices_and_missing_device_raise():
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5,
                                    err_msg=mode)
     assert MultiHeadAttention(16, 2, decode=True).decode
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.6"):
+    with pytest.raises(ValueError, match="chunk step only"):
         TransformerLM(vocab=8, d_model=16, n_heads=2, d_ff=16, n_layers=1,
                       sp_axis="seq", device="cpu")
+    assert TransformerLM(vocab=8, d_model=16, n_heads=2, d_ff=16, n_layers=1,
+                         paged="chunk", sp_axis="seq",
+                         device="cpu").sp_axis == "seq"
     with pytest.raises(ValueError, match="divide"):
         MultiHeadAttention(16, 4, n_kv_heads=3)
     if not torch.cuda.is_available():
