@@ -8,14 +8,19 @@ parts the serving path calls on every step):
   memory stats;
 * :func:`span` — named host regions on the profiler timeline and in the
   active sinks;
-* :mod:`tracing` — request span trees, the flight recorder and SLO
-  burn-rate gauges.
+* :mod:`tracing` — request span trees, the flight recorder, SLO
+  burn-rate gauges and the postmortem exports;
+* :class:`MetricsExporter` — a live Prometheus ``/metrics`` endpoint over
+  a Reporter or a fleet view;
+* :class:`AnomalyDetector` — latency-regression and goodput-drop alarms
+  over the fleet view (an autoscaler input).
 
-``hlo_audit.py`` (XLA's HLO), ``exporter.py`` and ``anomaly.py`` are later
-slices (ROADMAP A.7); ``spans.named_scope`` is XLA's and has no
-counterpart.
+``hlo_audit.py`` is XLA's HLO and ``spans.named_scope`` XLA's scopes; they
+have no counterpart.
 """
 
+from .anomaly import AnomalyDetector  # noqa: F401
+from .exporter import MetricsExporter  # noqa: F401
 from .reporter import (  # noqa: F401
     Reporter,
     get_reporter,
@@ -37,7 +42,10 @@ from .tracing import (  # noqa: F401
     Tracer,
     get_tracer,
     read_flight,
+    read_flight_dir,
+    stage_percentiles,
     stitch,
+    to_chrome_trace,
     trace_scope,
     tracing_active,
     validate_trace,

@@ -9,8 +9,8 @@ the cluster router), plus flat stage children — ``queue``, ``placement``,
 ``decode``, and a derived ``deliver`` span covering first→last streamed
 token.  The context travels as a tiny value object (:class:`SpanCtx`:
 trace id + parent span id) through the reference's router CMD frames,
-``serving.cluster.disagg.PrefillJob`` handoffs and KV-page migration (the
-cluster tier is a later slice of the port), so one request's tree spans every process it touched.
+``serving.cluster.disagg.PrefillJob`` handoffs and KV-page migration, so
+one request's tree spans every process it touched.
 
 Crash-robust parenting rule
 ---------------------------
@@ -33,11 +33,11 @@ disk.  A SIGKILL loses at most one truncated final line (skipped by the
 reader) — everything the replica finished before dying is recoverable
 for postmortems.
 
-Exports: :func:`stitch` + :func:`validate_trace` reassemble trees from
-flight files, and :class:`SLOConfig` drives burn-rate gauges through the
-Reporter.  The reference's postmortem tools (Chrome-trace export, stage
-percentiles, the straggler detector) come with the port of
-``tools/obs`` (ROADMAP A.7).
+Exports: :func:`read_flight_dir` + :func:`stitch` + :func:`validate_trace`
+reassemble trees from every process's flight file, :func:`to_chrome_trace`
+renders them for ``chrome://tracing``/Perfetto, :func:`stage_percentiles`
+summarises stage latencies, and :class:`SLOConfig` drives burn-rate gauges
+through the Reporter.
 
 Zero-overhead when disabled: every instrumented call site starts with
 ``tr = get_tracer()`` and does nothing when it returns ``None`` — no
@@ -47,6 +47,7 @@ ids are minted, no clocks are read, and nothing reaches the device.
 from __future__ import annotations
 
 import contextlib
+import glob as _glob
 import itertools
 import math
 import os
@@ -151,6 +152,18 @@ def read_flight(path: str) -> List[dict]:
     truncated final line skipped — the SIGKILL case)."""
     rows = _step_log.read_records(path, include_rotated=True, strict=False)
     return [r for r in rows if r.get("event") in ("span", "evt")]
+
+
+def read_flight_dir(pattern: str) -> List[dict]:
+    """Rows from every flight file matching a glob (e.g.
+    ``dir/flight_*.jsonl``), merged and sorted by start time."""
+    rows: List[dict] = []
+    for p in sorted(_glob.glob(pattern)):
+        if p.endswith(tuple(f".{i}" for i in range(1, 10))):
+            continue  # rotated segments are folded in by read_flight
+        rows.extend(read_flight(p))
+    rows.sort(key=lambda r: r.get("t0", r.get("ts", 0.0)))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +508,55 @@ def validate_trace(spans: List[dict], skew_s: float = 0.5) -> dict:
     }
 
 
+def to_chrome_trace(records: List[dict],
+                    app: str = "chainermn_tpu.serve") -> dict:
+    """Chrome-trace/Perfetto JSON: one process row per replica, one
+    thread row per trace, ``ph:"X"`` complete events for spans and
+    ``ph:"i"`` instants for events.  ``ts``/``dur`` are microseconds.
+    ``app`` names the process rows (the reference's name by default, so
+    one dashboard reads either package's traces)."""
+    replicas = sorted({str(r.get("replica")) for r in records},
+                      key=lambda x: (x == "None", x))
+    pid_of = {rep: i + 1 for i, rep in enumerate(replicas)}
+    tids: Dict[str, int] = {}
+
+    def tid_of(trace: str) -> int:
+        if trace not in tids:
+            tids[trace] = len(tids) + 1
+        return tids[trace]
+
+    events: List[dict] = []
+    for rep in replicas:
+        events.append({
+            "name": "process_name", "ph": "M", "pid": pid_of[rep],
+            "args": {"name": f"{app} replica={rep}"},
+        })
+    for r in sorted(records, key=lambda r: r.get("t0", r.get("ts", 0.0))):
+        pid = pid_of[str(r.get("replica"))]
+        if r.get("event") == "evt":
+            events.append({
+                "name": r["name"], "cat": "serve", "ph": "i", "s": "t",
+                "ts": round(r["ts"] * 1e6, 3), "pid": pid,
+                "tid": tid_of(r["trace"]),
+                "args": {"trace": r["trace"], "parent": r.get("parent"),
+                         **r.get("attrs", {})},
+            })
+            continue
+        args = {"trace": r["trace"], "span": r["span"],
+                "parent": r.get("parent")}
+        if r.get("error"):
+            args["error"] = True
+        args.update(r.get("attrs", {}))
+        events.append({
+            "name": r["name"], "cat": "serve", "ph": "X",
+            "ts": round(r["t0"] * 1e6, 3),
+            "dur": round(r.get("dur", 0.0) * 1e6, 3),
+            "pid": pid, "tid": tid_of(r["trace"]),
+            "args": args,
+        })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
 def percentile(values: List[float], q: float) -> float:
     """Nearest-rank percentile (q in [0, 100])."""
     if not values:
@@ -502,6 +564,24 @@ def percentile(values: List[float], q: float) -> float:
     xs = sorted(values)
     k = max(0, min(len(xs) - 1, math.ceil(q / 100.0 * len(xs)) - 1))
     return xs[k]
+
+
+def stage_percentiles(records: List[dict]) -> Dict[str, dict]:
+    """``{stage: {count, p50_s, p99_s, mean_s}}`` over span rows."""
+    durs: Dict[str, List[float]] = {}
+    for r in records:
+        if r.get("event") == "evt" or "dur" not in r:
+            continue
+        durs.setdefault(r["name"], []).append(float(r["dur"]))
+    out: Dict[str, dict] = {}
+    for name, xs in sorted(durs.items()):
+        out[name] = {
+            "count": len(xs),
+            "p50_s": percentile(xs, 50),
+            "p99_s": percentile(xs, 99),
+            "mean_s": sum(xs) / len(xs),
+        }
+    return out
 
 
 def detect_stragglers(stats: Dict[Tuple[Any, str], List[float]],

@@ -153,14 +153,34 @@ of which fails the run when wrong:
    request alone by (e)'s contract; (d) a running sequence's bf16 pages
    through ``extract_sequence`` -> ``send_snapshot``/``recv_snapshot`` ->
    ``restore_sequence`` into a second engine, bitwise, its continued
-   stream identical.  No flash kernel may launch.
+   stream identical.  No flash kernel may launch;
+14. the multi-process serving tier (cell ``serve-fleet-h100-1``: phase
+   12's widths, bf16, seed 0, max_len 512, 512 pages of 16 a replica,
+   decode batch 8; 16 requests of the CLI's synthetic 32-64-token prompts,
+   32 new tokens, every odd one sampled) through ``python -m
+   chainermn_tpu_torch.tools.serve``: (a) ``--groups 2 --verify``, a router
+   and two replica processes over the transport's ``TCPStore`` and socket
+   plane, the flight files stitched into a Chrome trace, the router's
+   ``/metrics`` scraped once mid-run for both replicas' series; (b) the
+   same fleet routed from this process (the store's master) with two
+   replica processes of this script's worker mode (``--fleet-replica``),
+   rank 2 SIGKILLed after 40 streamed tokens, its streams failed over;
+   (c) ``--tp 2 --verify``, one shard group (a leader and a follower
+   mirror).  Every request finishes, every process's weights have this
+   process's crc32, every stream equals the oracle's or is explained by
+   (e)'s contract; (b)'s flight postmortem has one trace a request, no
+   orphans and a failover event.  Records tokens/s (release of the
+   traffic to its last token, every replica warm), TTFT and per-token
+   percentiles, failovers and each process's GPU memory (``nvidia-smi
+   --query-compute-apps``) beside 12a's B 8 engine and 13c's threaded
+   fleet.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 ``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
 ``{"model_parallel": ...}``, a JSON line ``{"pipeline": ...}``, a JSON
 line ``{"long_context": ...}``, a JSON line ``{"gspmd": ...}``, a JSON
-line ``{"serving": ...}``, a JSON line ``{"serving_cluster": ...}``,
-the card's ``name, power.limit`` line, a
+line ``{"serving": ...}``, a JSON line ``{"serving_cluster": ...}``, a
+JSON line ``{"serving_fleet": ...}``, the card's ``name, power.limit`` line, a
 JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 
@@ -2875,9 +2895,515 @@ def phase_serving_cluster(torch, K, log, card, keep):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the multi-process serving tier (cell serve-fleet-h100-1)
+# ---------------------------------------------------------------------------
+
+# serve-lm-h100-1's module and pages (phase 4's widths, bf16, seed 0,
+# max_len 512, 512 pages of 16 a replica, decode batch 8) through
+# ``python -m chainermn_tpu_torch.tools.serve``: 16 requests of the CLI's
+# synthetic prompts (32-64 tokens), 32 new tokens, every odd request
+# sampled (``--verify`` turns the sampled legs on).  ``--max-queue 8``
+# lets each replica queue one batch, so the router's first placement pass
+# spreads the 16 requests over two replicas (a full queue rejects and the
+# router re-places).  ``--warm-start``: every replica serves a short
+# request before its first load beat and the router holds the traffic
+# until each has beaten, so the latencies exclude start-up.
+FLEET_FLAGS = ["--vocab", "32768", "--d-model", "2048", "--heads", "16",
+               "--d-ff", "8192", "--layers", "8", "--max-len", "512",
+               "--block-size", "16", "--n-blocks", "512", "--max-batch", "8",
+               "--max-queue", "8", "--requests", "16", "--prompt-len", "64",
+               "--new-tokens", "32", "--seed", "0", "--warm-start",
+               "--timeout-s", "300", "--miss-after-s", "30"]
+FLEET_KILL_TOKENS = 40       # (b): replica rank 2 SIGKILLs itself after these
+FLEET_RUN_S = 300            # each run's processes are joined under this
+
+
+class GpuMemory:
+    """Samples ``nvidia-smi --query-compute-apps=pid,used_memory`` and the
+    card's ``memory.used`` every 0.5 s while running: ``peaks`` is the
+    largest MiB seen a listed pid (inside a container every process may be
+    listed under one pid), ``card_peak`` the card's largest used MiB."""
+
+    def __init__(self):
+        import threading
+
+        self.peaks, self.card_peak = {}, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def _query(flags):
+        try:
+            return subprocess.run(["nvidia-smi"] + flags, capture_output=True,
+                                  text=True, timeout=10).stdout
+        except (OSError, subprocess.SubprocessError):
+            return ""
+
+    def _run(self):
+        while not self._stop.is_set():
+            for line in self._query(["--query-compute-apps=pid,used_memory",
+                                     "--format=csv,noheader,nounits"]
+                                    ).splitlines():
+                parts = [x.strip() for x in line.split(",")]
+                if len(parts) == 2 and parts[1].isdigit():
+                    self.peaks[parts[0]] = max(self.peaks.get(parts[0], 0),
+                                               int(parts[1]))
+            used = self._query(["--query-gpu=memory.used",
+                                "--format=csv,noheader,nounits"]).split()
+            if used and used[0].isdigit():
+                self.card_peak = max(self.card_peak, int(used[0]))
+            self._stop.wait(0.5)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=15)
+
+
+def fleet_args(extra=(), flags=None):
+    """The CLI's own parse of the cell's flags (plus ``extra``)."""
+    from chainermn_tpu_torch.tools import serve
+
+    return serve.build_parser().parse_args(
+        list(FLEET_FLAGS if flags is None else flags) + list(extra))
+
+
+def fleet_replica_main(argv) -> int:
+    """Worker mode of (b): one replica process of the kill run, through
+    the CLI's own store and engine factory and ``service.run_replica``;
+    the CLI flags follow ``--``.  Prints one JSON line (its rank,
+    weights' crc32 and exit reason)."""
+    from chainermn_tpu_torch.serving.cluster import service
+    from chainermn_tpu_torch.tools import serve
+
+    cut = argv.index("--")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--fleet-replica", type=int, required=True)
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--num-processes", type=int, required=True)
+    ap.add_argument("--kill-after-tokens", type=int, default=None)
+    ap.add_argument("--flight-dir", required=True)
+    a = ap.parse_args(argv[:cut])
+    rank = a.fleet_replica
+    args = fleet_args(["--role", "replica", "--coordinator", a.coordinator,
+                       "--num-processes", str(a.num_processes),
+                       "--process-id", str(rank)], flags=argv[cut + 1:])
+    serve._init_distributed(args)
+    built = []
+    out = service.run_replica(
+        rank, a.num_processes, serve._engine_factory(args, built),
+        max_queue=args.max_queue, kill_after_tokens=a.kill_after_tokens,
+        flight_path=os.path.join(a.flight_dir, f"flight_{rank}.jsonl"))
+    print(json.dumps({"mode": "replica", "rank": rank,
+                      **serve.module_info(built), **out,
+                      **serve.cuda_memory(args.device)}), flush=True)
+    return 0
+
+
+def _fleet_reports(text):
+    reps = {}
+    for line in text.splitlines():
+        if line.startswith("{"):
+            d = json.loads(line)
+            reps[d.get("mode")] = d
+    return reps
+
+
+def _scrape_until(url_file, proc, want, deadline):
+    """Scrape the router's ``/metrics`` (its port in ``url_file``) until a
+    page carries every string of ``want`` or the run ends; returns the
+    last page read (None when none was)."""
+    import urllib.request
+
+    page = None
+    while time.monotonic() < deadline and proc.poll() is None:
+        if os.path.exists(url_file):
+            try:
+                with open(url_file) as f:
+                    url = f"http://127.0.0.1:{int(f.read())}/metrics"
+                with urllib.request.urlopen(url, timeout=5) as r:
+                    page = r.read().decode()
+                if all(w in page for w in want):
+                    return page
+            except (OSError, ValueError):
+                pass
+        time.sleep(0.05)
+    return page
+
+
+def fleet_cli(log, extra, tmp, name, meanwhile=None):
+    """One run of ``tools.serve`` as a user starts it (router + replica
+    processes); ``meanwhile()`` runs here while the replicas start (the
+    traffic waits for them).  Returns (router report, launcher report,
+    scrape, GPU memory sampled, the CLI's pid, wall s)."""
+    flight = os.path.join(tmp, f"{name}_flight")
+    port_file = os.path.join(tmp, f"{name}_port")
+    cmd = [sys.executable, "-m", "chainermn_tpu_torch.tools.serve"] + \
+        FLEET_FLAGS + list(extra) + [
+            "--verify", "--flight-dir", flight,
+            "--trace-out", os.path.join(tmp, f"{name}_trace.json"),
+            "--metrics-port-file", port_file]
+    err_path = os.path.join(tmp, f"{name}_stderr.txt")
+    t0 = time.perf_counter()
+    with GpuMemory() as mem, open(err_path, "w") as err_file:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=err_file,
+                                text=True, cwd=os.path.dirname(
+                                    os.path.abspath(__file__)))
+        if meanwhile is not None:
+            meanwhile()
+        try:
+            scrape = _scrape_until(
+                port_file, proc, ['replica="1"', 'replica="2"'],
+                time.monotonic() + FLEET_RUN_S) if name == "a" else None
+            out = proc.communicate(timeout=FLEET_RUN_S)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out = proc.communicate()[0]
+    wall = time.perf_counter() - t0
+    with open(err_path) as f:
+        err = f.read()
+    if proc.returncode is None or wall > FLEET_RUN_S:
+        raise AssertionError(f"phase 14{name}: the CLI did not finish in "
+                             f"{FLEET_RUN_S}s:\n{err[-3000:]}")
+    reps = _fleet_reports(out)
+    if "router" not in reps or "launcher" not in reps:
+        raise AssertionError(f"phase 14{name}: no report (rc "
+                             f"{proc.returncode}):\n{err[-3000:]}")
+    log(f"fleet {name}: CLI exit {proc.returncode}, {wall:.1f}s wall")
+    return reps["router"], reps["launcher"], scrape, mem, proc.pid, wall
+
+
+def _explain(torch, lm, geo, prompts, samplings, oracle, fleet, memo, log,
+             run, device="cuda"):
+    """Phase 12 (e)'s contract for the streams of ``fleet`` that differ
+    from ``oracle`` (both dicts gid -> tokens): teacher-force the oracle
+    streams through decode at B 1 and B 8 and 4-token chunks on ``lm``,
+    and, at the divergence, prefill the prompt with the oracle's tokens
+    so far in one step (the step a failover's re-placement takes).  A
+    greedy divergence must have its top-2 margin within the largest of
+    those differences, a sampled one must sample the fleet's token from
+    one of those step shapes' logits.  Returns the divergences; raises on
+    one the contract does not explain."""
+    import numpy as np
+
+    from chainermn_tpu_torch.serving import (EngineConfig, InferenceEngine,
+                                             SamplingParams)
+
+    bad = [g for g in sorted(fleet) if fleet[g] != oracle[g]]
+    if not bad:
+        return []
+    if "tf" not in memo:
+        refs = [oracle[g] for g in range(len(prompts))]
+        tf1, tf8, tfc = (teacher_forced(torch, lm, refs, prompts, how,
+                                        engine_kw=dict(device=device), **geo)
+                         for how in (("decode", 1), ("decode", 8),
+                                     ("chunk", 4)))
+        diffs = [max(_rel_rows(a, b), _rel_rows(c, b))
+                 for a, b, c in zip(tf8, tf1, tfc)]
+        memo["tf"] = (tf1, tf8, tfc, diffs)
+    tf1, tf8, tfc, diffs = memo["tf"]
+    eng = InferenceEngine(lm, EngineConfig(max_batch=1, **geo),
+                          device=device)
+    out, unexplained = [], []
+    for g in bad:
+        s, a = fleet[g], oracle[g]
+        j = next(k for k, (x, y) in enumerate(zip(s, a)) if x != y)
+        ctx = list(prompts[g]) + list(a[:j])
+        eng.kv.allocate("x", len(ctx))
+        pre = np.asarray(eng.prefill(ctx, "x"))
+        eng.kv.free("x")
+        pre_rel = _rel_rows(pre[None], tf1[g][j][None])
+        limit = max(diffs[g], pre_rel)
+        row = {"request": g, "position": j, "sampled": bool(samplings[g]),
+               "teacher_forced_rel": diffs[g], "prefill_rel": pre_rel}
+        if samplings[g]:
+            sp, pos = SamplingParams(**samplings[g]), len(prompts[g]) + j
+            alt = {InferenceEngine.sample(np.asarray(t), sp, pos)
+                   for t in (tf8[g][j], tfc[g][j], pre)}
+            row["step_shape_tokens"] = sorted(int(x) for x in alt)
+            ok = s[j] in alt
+        else:
+            top = np.sort(tf1[g][j])[-2:]
+            row["margin_rel"] = float((top[1] - top[0])
+                                      / np.abs(tf1[g][j]).max())
+            ok = row["margin_rel"] <= limit
+        ok = ok and limit <= SERVE_TOL
+        out.append(row)
+        if not ok:
+            unexplained.append(row)
+    log(f"fleet {run}: {len(bad)} streams differ from the oracle: {out}")
+    if unexplained:
+        raise AssertionError(f"phase 14{run}: divergences the contract does "
+                             f"not explain: {unexplained}")
+    return out
+
+
+def _postmortem(flight_dir, n_requests):
+    """The flight files of every process of a run: one trace a request,
+    no orphans, monotone clocks; the failover events seen."""
+    from chainermn_tpu_torch.observability import tracing
+
+    rows = tracing.read_flight_dir(os.path.join(flight_dir, "flight_*.jsonl"))
+    trees = tracing.stitch(rows)
+    vals = [tracing.validate_trace(t["spans"]) for t in trees.values()]
+    return {"traces": len(trees), "requests": n_requests,
+            "orphans": sum(len(v["orphans"]) for v in vals),
+            "connected": sum(v["connected"] for v in vals),
+            "monotone": sum(v["monotone"] for v in vals),
+            "failover_events": sum(1 for r in rows if r.get("event") == "evt"
+                                   and r.get("name") == "failover"),
+            "stages": {k: {"count": v["count"], "p50_s": v["p50_s"],
+                           "p99_s": v["p99_s"]}
+                       for k, v in tracing.stage_percentiles(rows).items()}}
+
+
+def fleet_kill_run(log, tmp, prompts, samplings):
+    """(b): this process routes (the store's master) and two replica
+    processes of this script's worker mode serve; rank 2 SIGKILLs itself
+    after ``FLEET_KILL_TOKENS`` streamed tokens and the router fails its
+    streams over to rank 1.  Returns (results, stats, the replicas' exit
+    codes and reports, GPU MiB by pid, wall s)."""
+    from chainermn_tpu_torch.communicators import kvtransport
+    from chainermn_tpu_torch.serving.cluster import service
+    from chainermn_tpu_torch.tools import serve
+
+    flight = os.path.join(tmp, "b_flight")
+    os.makedirs(flight, exist_ok=True)
+    args = fleet_args(["--role", "router", "--coordinator", "127.0.0.1:0",
+                       "--num-processes", "3", "--process-id", "0"])
+    store = serve._init_distributed(args)
+    me = os.path.abspath(__file__)
+    procs, t0 = [], time.perf_counter()
+    try:
+        with GpuMemory() as mem:
+            for rank in (1, 2):
+                cmd = [sys.executable, me, "--fleet-replica", str(rank),
+                       "--coordinator", f"127.0.0.1:{store.port}",
+                       "--num-processes", "3", "--flight-dir", flight]
+                if rank == 2:
+                    cmd += ["--kill-after-tokens", str(FLEET_KILL_TOKENS)]
+                cmd += ["--"] + FLEET_FLAGS
+                procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              text=True))
+            stats = {}
+            requests = [{"prompt": p, "max_new_tokens": args.new_tokens,
+                         "timeout_s": args.timeout_s, "sampling": s}
+                        for p, s in zip(prompts, samplings)]
+            results = service.run_router(
+                3, requests, miss_after_s=args.miss_after_s,
+                timeout_s=args.timeout_s,
+                flight_path=os.path.join(flight, "flight_router.jsonl"),
+                wait_ready=True, stats=stats)
+            outs = [p.communicate(timeout=FLEET_RUN_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        kvtransport.uninstall()
+        del store
+    wall = time.perf_counter() - t0
+    kids = [{"rank": r, "returncode": p.returncode,
+             "report": _fleet_reports(o).get("replica")}
+            for r, p, o in zip((1, 2), procs, outs)]
+    log(f"fleet b: exits {[k['returncode'] for k in kids]}, {wall:.1f}s wall")
+    return results, stats, kids, mem, wall, flight
+
+
+def phase_serving_fleet(torch, K, log, card, keep, serving_cluster):
+    """Phase 14 on the cell serve-fleet-h100-1: (a) ``tools.serve --groups
+    2 --verify``: a router and two replica processes, the flight files
+    stitched into a Chrome trace, one scrape of the router's ``/metrics``
+    mid-run; (b) the same fleet with replica rank 2 SIGKILLed after 40
+    streamed tokens, routed from this process; (c) ``tools.serve --tp 2
+    --verify``: one shard group, a leader and a follower mirror.  Every
+    request finishes, every process holds the same weights (crc32), every
+    stream equals the oracle's or is explained by phase 12 (e)'s contract;
+    (b)'s postmortem has one trace a request, no orphans and a failover
+    event.  Records tokens/s, TTFT and per-token percentiles and each
+    process's GPU memory beside 12a's B 8 engine and 13c's threaded fleet
+    of this run."""
+    import tempfile
+
+    from chainermn_tpu_torch.serving import InferenceEngine, SamplingParams
+    from chainermn_tpu_torch.tools import serve
+
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    torch.cuda.empty_cache()
+    lm = keep["lm"]
+    args = fleet_args()
+    geo = dict(block_size=args.block_size, n_blocks=args.n_blocks,
+               max_len=args.max_len)
+    crc_here = serve.weights_crc32(lm)
+    args.sampled = True
+    prompts = serve._synthetic_prompts(args)
+    samplings = serve._request_samplings(args, len(prompts))
+    out = {"card": card, "config": {"flags": FLEET_FLAGS,
+                                    "kill_after_tokens": FLEET_KILL_TOKENS,
+                                    "prompt_lens": [len(p) for p in prompts]},
+           "weights_crc32": crc_here, "smoke_pid": os.getpid()}
+    memo, bad = {}, []
+    tmp = tempfile.mkdtemp(prefix="fleet_", dir=os.environ.get("TMPDIR"))
+
+    # The oracle, on this process's phase 12 module (the same seed and
+    # widths as every replica's; their crc32 must equal crc_here), run
+    # while (a)'s replicas build their modules.
+    oracle = {}
+
+    def run_oracle():
+        eng = InferenceEngine(lm, serve._engine_config(args),
+                              device=args.device)
+        for g, (p, s) in enumerate(zip(prompts, samplings)):
+            oracle[g] = eng.generate(
+                p, args.new_tokens,
+                sampling=SamplingParams(**s) if s else None)
+
+    def check_run(name, router, kids):
+        crcs = {k["report"]["weights_crc32"] for k in kids if k["report"]}
+        row = {"statuses": router["statuses"],
+               "router_cuda_mib": router.get("cuda_max_reserved_mib"),
+               "replica_cuda_mib": [k["report"] and k["report"].get(
+                   "cuda_max_reserved_mib") for k in kids],
+               "failovers": router["failovers"],
+               "tokens": router["tokens"],
+               "tokens_per_s": router.get("serve_tokens_per_sec"),
+               "ttft_p50_ms": router["latency"]["ttft_p50_s"] * 1e3,
+               "ttft_p99_ms": router["latency"]["ttft_p99_s"] * 1e3,
+               "p50_token_ms": router["latency"]["per_token_p50_s"] * 1e3,
+               "p99_token_ms": router["latency"]["per_token_p99_s"] * 1e3,
+               "ready_s": router["ready_s"],
+               "serve_wall_s": router["serve_wall_s"],
+               "exits": [k["returncode"] for k in kids],
+               "streamed": [k["report"] and k["report"].get("streamed")
+                            for k in kids]}
+        if router["statuses"] != {"finished": len(prompts)}:
+            bad.append(f"{name}: statuses {router['statuses']}")
+        if crcs != {crc_here}:
+            bad.append(f"{name}: weights crc32 {crcs} vs {crc_here}")
+        par = router.get("parity_streams") or {}
+        fleet = {g: (par[str(g)]["fleet"] if str(g) in par else oracle[g])
+                 for g in range(len(prompts))}
+        cli_oracle = {g: (par[str(g)]["oracle"] if str(g) in par
+                          else oracle[g]) for g in range(len(prompts))}
+        if cli_oracle != oracle:
+            bad.append(f"{name}: the CLI's oracle differs from this "
+                       f"process's")
+        row["divergences"] = _explain(torch, lm, geo, prompts, samplings,
+                                      oracle, fleet, memo, log, name,
+                                      args.device)
+        return row
+
+    # (a)
+    router, launcher, scrape, mem, cli_pid, wall = fleet_cli(
+        log, ["--groups", "2"], tmp, "a", meanwhile=run_oracle)
+    kids = launcher["processes"]
+    ra = out["a"] = check_run("a", router, kids)
+    ra["wall_s"], ra["gpu_mib"] = wall, mem.peaks
+    ra["card_peak_mib"] = mem.card_peak
+    ra["cli_pid"] = cli_pid
+    ra["trace_stages"] = router.get("trace_stages")
+    ra["scrape_series"] = sorted(set(re.findall(r'replica="[^"]+"',
+                                                scrape or "")))
+    if not (scrape and 'replica="1"' in scrape and 'replica="2"' in scrape):
+        bad.append(f"a: the /metrics scrape lacks the replicas' series "
+                   f"({ra['scrape_series']})")
+    if any(k["returncode"] != 0 for k in kids) or min(
+            k["report"]["streamed"] for k in kids) == 0:
+        bad.append(f"a: replicas {kids}")
+
+    # (b)
+    results, stats, kids, mem, wall, flight = fleet_kill_run(
+        log, tmp, prompts, samplings)
+    fleet = {g: r["tokens"] for g, r in results.items()}
+    lat = serve._latency(results)
+    rb = out["b"] = {
+        "statuses": {s: sum(r["status"] == s for r in results.values())
+                     for s in {r["status"] for r in results.values()}},
+        "failovers": sum(r["failovers"] for r in results.values()),
+        "tokens": sum(len(v) for v in fleet.values()),
+        "tokens_per_s": sum(len(v) for v in fleet.values())
+        / stats["serve_wall_s"],
+        "ttft_p50_ms": lat["ttft_p50_s"] * 1e3,
+        "ttft_p99_ms": lat["ttft_p99_s"] * 1e3,
+        "p50_token_ms": lat["per_token_p50_s"] * 1e3,
+        "p99_token_ms": lat["per_token_p99_s"] * 1e3,
+        "ready_s": stats["ready_s"], "serve_wall_s": stats["serve_wall_s"],
+        "exits": [k["returncode"] for k in kids], "wall_s": wall,
+        "gpu_mib": mem.peaks, "card_peak_mib": mem.card_peak,
+        "replica_cuda_mib": [k["report"] and k["report"].get(
+            "cuda_max_reserved_mib") for k in kids]}
+    rb["postmortem"] = pm = _postmortem(flight, len(prompts))
+    rb["divergences"] = _explain(torch, lm, geo, prompts, samplings, oracle,
+                                 fleet, memo, log, "b", args.device)
+    if rb["statuses"] != {"finished": len(prompts)}:
+        bad.append(f"b: statuses {rb['statuses']}")
+    if rb["exits"] != [0, -9] or rb["failovers"] == 0:
+        bad.append(f"b: exits {rb['exits']}, failovers {rb['failovers']}")
+    crc_b = kids[0]["report"] and kids[0]["report"]["weights_crc32"]
+    if crc_b != crc_here:
+        bad.append(f"b: survivor's weights crc32 {crc_b} vs {crc_here}")
+    if not (pm["traces"] == len(prompts) and pm["orphans"] == 0
+            and pm["connected"] == len(prompts)
+            and pm["failover_events"] > 0):
+        bad.append(f"b: postmortem {pm}")
+
+    # (c)
+    router, launcher, _, mem, cli_pid, wall = fleet_cli(
+        log, ["--tp", "2"], tmp, "c")
+    kids = launcher["processes"]
+    rc = out["c"] = check_run("c", router, kids)
+    rc["wall_s"], rc["gpu_mib"], rc["cli_pid"] = wall, mem.peaks, cli_pid
+    rc["card_peak_mib"] = mem.card_peak
+    rc["follower_applied"] = kids[1]["report"] and \
+        kids[1]["report"].get("applied")
+    if [k["returncode"] for k in kids] != [0, 0] or not rc["follower_applied"]:
+        bad.append(f"c: shard group {kids}")
+
+    row12 = keep["row_b8"]
+    out["phase12_b8"] = {k: row12[k] for k in (
+        "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "p50_token_ms",
+        "p99_token_ms", "peak_gib")}
+    cp = serving_cluster["cluster_plain"]
+    out["phase13c_plain"] = {k: cp[k] for k in (
+        "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "p50_token_ms",
+        "p99_token_ms", "peak_gib")}
+    for name in ("a", "b", "c"):
+        r = out[name]
+        log(f"serve fleet {name}: {r['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{r['ttft_p50_ms']:.1f} ms p99 {r['ttft_p99_ms']:.1f} ms, "
+            f"per-token p50 {r['p50_token_ms']:.2f} ms p99 "
+            f"{r['p99_token_ms']:.2f} ms, failovers {r['failovers']}, "
+            f"ready {r['ready_s']:.1f}s, serving {r['serve_wall_s']:.2f}s, "
+            f"CUDA MiB reserved by replica {r['replica_cuda_mib']} (router "
+            f"{r.get('router_cuda_mib')}), card peak {r['card_peak_mib']} "
+            f"MiB (nvidia-smi by pid {r['gpu_mib']}), divergences "
+            f"{len(r['divergences'])}, wall {r['wall_s']:.1f}s")
+    log(f"serve fleet against 12a B=8 {row12['tokens_per_s']:.1f} tokens/s "
+        f"(TTFT p50 {row12['ttft_p50_ms']:.1f} ms) and 13c threaded fleet "
+        f"{cp['tokens_per_s']:.1f} tokens/s (TTFT p50 "
+        f"{cp['ttft_p50_ms']:.1f} ms); (b) postmortem {pm}")
+    launches = dict(K.LAUNCHES)
+    out["flash_launches"] = launches
+    if any(launches.values()):
+        bad.append(f"flash kernels launched: {launches}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 14: {out['wall_s']:.1f}s")
+    if bad:
+        raise AssertionError("phase 14: " + "; ".join(bad))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if "--fleet-replica" in argv:
+        return fleet_replica_main(argv)
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--log", default=None,
                     help="also append the progress lines to this file")
@@ -2936,6 +3462,8 @@ def main(argv=None) -> int:
     keep = {}
     serving = phase_serving(torch, K, log, card, keep)
     serving_cluster = phase_serving_cluster(torch, K, log, card, keep)
+    serving_fleet = phase_serving_fleet(torch, K, log, card, keep,
+                                        serving_cluster)
     del keep
 
     kernels = []
@@ -2961,6 +3489,7 @@ def main(argv=None) -> int:
     print(json.dumps({"gspmd": gspmd}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"serving_cluster": serving_cluster}), flush=True)
+    print(json.dumps({"serving_fleet": serving_fleet}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

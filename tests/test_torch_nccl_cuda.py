@@ -38,6 +38,14 @@ card), bf16, 3 steps, ``--dp 1`` with ``--sp ring``, ``zigzag``,
 and ``moe_layer`` at four ranks with two experts a rank against the
 one-device oracle.
 
+The multi-process serving tier across four cards: a router in this
+process (the transport's ``TCPStore`` master) and four replica processes
+of ``tests/_torch_serve_mp_worker.py``'s ``card`` mode, one a card through
+``CUDA_VISIBLE_DEVICES``, at ``chip_smoke.py`` phase 14's widths on 32
+requests; replica rank 1 is SIGKILLed after 40 streamed tokens.  Every
+stream is held to one card's engine by phase 12 (e)'s contract; tokens/s,
+TTFT and the failover gap are printed with the card line.
+
 The GSPMD step over NCCL (one spawn of ``_torch_gspmd_worker``'s
 ``gspmd_cards`` across four cards, one ``gspmd_one_card`` on one card):
 phase 4's model (vocab 32768, d_model 2048, 16 heads, d_ff 8192, 8
@@ -713,3 +721,114 @@ def test_serving_across_cards_matches_one_card(serve_cards, serve_one_card,
                   f"busy {one['tp']['profile']['busy_ms']:.2f})")
         else:
             assert run["sp_chunk_compiles"] >= 1
+
+
+# The multi-process serving tier across four cards: chip_smoke.py phase
+# 14's cell (phase 4's widths, bf16, seed 0, max_len 512, 512 pages of 16 a
+# replica, B 8, one batch queued a replica) on 32 greedy requests, one
+# replica process a card.  The replicas share no process group: only the
+# transport's store and sockets.
+FLEET_CARD_FLAGS = ["--vocab", "32768", "--d-model", "2048", "--heads", "16",
+                    "--d-ff", "8192", "--layers", "8", "--max-len", "512",
+                    "--block-size", "16", "--n-blocks", "512",
+                    "--max-batch", "8", "--max-queue", "8",
+                    "--requests", "32", "--prompt-len", "64",
+                    "--new-tokens", "32", "--seed", "0", "--warm-start",
+                    "--timeout-s", "300", "--miss-after-s", "30"]
+FLEET_KILL_TOKENS = 40
+
+
+@pytest.mark.cuda
+def test_serving_fleet_across_cards_survives_kill9():
+    """A router and four replica processes, one a card; replica rank 1
+    (the first the router fills) SIGKILLs itself after 40 streamed tokens
+    and the router fails its streams over.  Every request finishes; every stream equals one card's
+    sequential engine or is explained by phase 12 (e)'s contract (its
+    top-2 margin at the divergence within the stream's teacher-forced
+    difference between decode at B 1 and B 8); every replica holds the
+    same weights (crc32)."""
+    import os
+    import subprocess
+    import sys
+
+    import _torch_serve_worker as serve_worker
+    from chainermn_tpu_torch.communicators import kvtransport
+    from chainermn_tpu_torch.serving import InferenceEngine
+    from chainermn_tpu_torch.serving.cluster import service
+    from chainermn_tpu_torch.tools import serve
+
+    n = _four()
+    size = n + 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    args = serve.build_parser().parse_args(FLEET_CARD_FLAGS + [
+        "--role", "router", "--coordinator", "127.0.0.1:0",
+        "--num-processes", str(size), "--process-id", "0"])
+    store = serve._init_distributed(args)
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for pid in range(1, size):
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES=str(pid - 1),
+                       PYTHONPATH=os.pathsep.join(
+                           p for p in (os.path.dirname(here),
+                                       os.environ.get("PYTHONPATH")) if p))
+            kill = FLEET_KILL_TOKENS if pid == 1 else 0
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(here,
+                                              "_torch_serve_mp_worker.py"),
+                 "card", str(pid), str(size), str(store.port), str(kill),
+                 "--"] + FLEET_CARD_FLAGS,
+                stdout=subprocess.PIPE, text=True, env=env))
+        prompts = serve._synthetic_prompts(args)
+        stats = {}
+        results = service.run_router(
+            size, [{"prompt": p, "max_new_tokens": args.new_tokens,
+                    "timeout_s": args.timeout_s} for p in prompts],
+            miss_after_s=args.miss_after_s, timeout_s=args.timeout_s,
+            wait_ready=True, stats=stats)
+        outs = [p.communicate(timeout=JOIN_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        kvtransport.uninstall()
+        del store
+    codes = [p.returncode for p in procs]
+    assert codes == [-9] + [0] * (n - 1), codes
+    reports = [json.loads(o.splitlines()[-1]) for o in outs[1:]]
+    assert len({r["weights_crc32"] for r in reports}) == 1
+
+    lm = serve._build_model(args)
+    assert serve.weights_crc32(lm) == reports[0]["weights_crc32"]
+    eng = InferenceEngine(lm, serve._engine_config(args), device=args.device)
+    oracle = [eng.generate(p, args.new_tokens) for p in prompts]
+    streams = [results[g]["tokens"] for g in range(len(prompts))]
+    assert all(r["status"] == "finished" for r in results.values())
+    failovers = sum(r["failovers"] for r in results.values())
+    assert failovers > 0
+    tf1 = [serve_worker._teacher_forced(eng, p, s)
+           for p, s in zip(prompts, oracle)]
+    tf8 = serve_worker._teacher_forced_b8(eng, prompts, oracle)
+    same, worst = _serving_contract(streams, oracle, tf8, tf1)
+
+    lat = serve._latency(results)
+    gaps = [max((b - a for a, b in zip(r["token_times"],
+                                       r["token_times"][1:])), default=0.0)
+            for r in results.values() if r["failovers"]]
+    tokens = sum(len(s) for s in streams)
+    print(f"serve fleet across {n} cards ({card}): "
+          f"{tokens / stats['serve_wall_s']:.1f} tokens/s over "
+          f"{stats['serve_wall_s']:.2f} s of serving (ready after "
+          f"{stats['ready_s']:.1f} s), TTFT p50 "
+          f"{lat['ttft_p50_s'] * 1e3:.1f} ms p99 "
+          f"{lat['ttft_p99_s'] * 1e3:.1f} ms, per-token p50 "
+          f"{lat['per_token_p50_s'] * 1e3:.2f} ms p99 "
+          f"{lat['per_token_p99_s'] * 1e3:.2f} ms; {failovers} failovers, "
+          f"largest gap of a failed-over stream {max(gaps):.3f} s; "
+          f"{same}/{len(streams)} streams identical to one card's, "
+          f"teacher-forced difference {worst:.3g}; streamed "
+          f"{[r['streamed'] for r in reports]}")
