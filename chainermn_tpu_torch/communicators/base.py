@@ -118,6 +118,7 @@ class CommunicatorBase:
     the buckets on a scaled narrow wire."""
 
     name = "base"
+    _plane_count = 0
 
     def __init__(self, topology: Topology, allreduce_grad_dtype=None,
                  bucket_bytes: int | None = None,
@@ -142,6 +143,12 @@ class CommunicatorBase:
         self.comm_dtype = quant.canonical_comm_dtype(comm_dtype)
         self._fp8_sums = None         # does the backend sum fp8? (probed)
         self._packers: dict = {}      # bucket plan per (shapes, dtypes)
+        self._reported_plans: set = set()   # ids of plans first used
+        # The object plane's name, as the reference numbers its planes:
+        # communicators are built in the same order on every rank, so a
+        # creation count names the same plane everywhere.
+        CommunicatorBase._plane_count += 1
+        self.plane_name = f"comm{CommunicatorBase._plane_count}"
         self._recv_state: dict = {}   # partial receives, kept for retries
         members = topology.members
         # Group position -> communicator rank (groups order ranks by their
@@ -416,21 +423,21 @@ class CommunicatorBase:
         bb = self.resolve_bucket_bytes() if len(leaves) > 1 else 0
         bucketed = bb > 0
         wire = self.wire_dtype() if bucketed else None
+        dt = self.allreduce_grad_dtype
+        packer = None
+        if bucketed:
+            packer = self._packer_for(
+                [g.shape for g in leaves],
+                [g.dtype if dt is None else dt for g in leaves], bb)
+            self._report_plan(packer, wire)
         if self.size == 1 and wire is None:
-            if self.allreduce_grad_dtype is not None:
+            if dt is not None:
                 with torch.no_grad():
                     for g in leaves:
-                        g.copy_(g.to(self.allreduce_grad_dtype))
+                        g.copy_(g.to(dt))
             return grads
-        work = leaves
-        if self.allreduce_grad_dtype is not None:
-            work = [g.to(self.allreduce_grad_dtype) for g in leaves]
+        work = leaves if dt is None else [g.to(dt) for g in leaves]
         if bucketed:
-            key = (bb,) + tuple((tuple(g.shape), g.dtype) for g in work)
-            packer = self._packers.get(key)
-            if packer is None:
-                packer = packing.GradPacker.for_tensors(work, bb)
-                self._packers[key] = packer
             bufs = packer.pack(work)
             out = packer.unpack([self._launch_bucket(b, wire)()
                                  for b in bufs])
@@ -440,6 +447,48 @@ class CommunicatorBase:
             for g, r in zip(leaves, out):
                 g.copy_(r)
         return grads
+
+    def _packer_for(self, shapes, dtypes, bucket_bytes: int):
+        """The bucket plan of one gradient layout, built once per
+        (bucket bytes, shapes, dtypes) and cached."""
+        key = (bucket_bytes,) + tuple(
+            (tuple(s), d) for s, d in zip(shapes, dtypes))
+        packer = self._packers.get(key)
+        if packer is None:
+            packer = packing.GradPacker(shapes, dtypes, bucket_bytes)
+            self._packers[key] = packer
+        return packer
+
+    def _report_plan(self, packer, wire) -> None:
+        """Publish a plan at its first use, the counterpart of the
+        reference's trace-time publication (once a layout; a plan first
+        used with no telemetry installed is never published).  The plan
+        is the same at every world size: on one rank with a full-precision
+        wire it is published though nothing is packed."""
+        if id(packer) in self._reported_plans:
+            return
+        self._reported_plans.add(id(packer))
+        from ..observability import reporter as _reporter
+        from ..observability import spans as _spans
+
+        if not _spans.telemetry_active():
+            return
+        rep = _reporter.get_reporter()
+        if rep is None:
+            return
+        rep.count("grad_pack/traces")
+        rep.count("grad_pack/leaves", packer.n_leaves)
+        rep.count("grad_pack/buckets", packer.n_buckets)
+        rep.count("grad_pack/payload_bytes", packer.payload_bytes)
+        rep.count("grad_pack/pad_bytes",
+                  packer.padded_bytes - packer.payload_bytes)
+        rep.histogram_observe("grad_pack/bucket_bytes", packer.bucket_bytes)
+        if wire is None:
+            return
+        quantized = [b for b in packer.buckets if quant.quantizable(b.dtype)]
+        rep.count("grad_pack/quant_buckets", len(quantized))
+        rep.count("grad_pack/quant_wire_bytes",
+                  sum(b.padded_elems * wire.itemsize for b in quantized))
 
     def _launch_bucket(self, buf, wire):
         """Start one bucket's mean; returns a callable that waits for it

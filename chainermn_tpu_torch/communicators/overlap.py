@@ -30,8 +30,6 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from . import packing
-
 #: ``0``/``false``/``off``/``no`` disables the overlapped schedule on
 #: every communicator; unset or anything else keeps it ON (the default).
 ENV_OVERLAP = "CHAINERMN_TPU_OVERLAP"
@@ -124,7 +122,7 @@ class BackwardOverlap:
         self.params = list(params)
         self.wire = wire
         dt = comm.allreduce_grad_dtype
-        self.packer = packing.GradPacker(
+        self.packer = comm._packer_for(
             [p.shape for p in self.params],
             [p.dtype if dt is None else dt for p in self.params],
             comm.resolve_bucket_bytes(),
@@ -147,6 +145,7 @@ class BackwardOverlap:
         return hook
 
     def arm(self, n_accum: int = 1) -> None:
+        self.comm._report_plan(self.packer, self.wire)
         self._n_accum = n_accum
         self._missing = [len(b.leaf_indices) for b in self.packer.buckets]
         self._seen = [False] * len(self.params)

@@ -146,6 +146,10 @@ class GradPacker:
                    bucket_bytes)
 
     @property
+    def n_leaves(self) -> int:
+        return len(self.shapes)
+
+    @property
     def n_buckets(self) -> int:
         return len(self.buckets)
 

@@ -171,10 +171,11 @@ def error_bound(comm_dtype: str, amax, world: int):
     raise ValueError(f"no error bound for comm_dtype {comm_dtype!r}")
 
 
-def measure_comm_quant_error(comm, tensors) -> float:
+def measure_comm_quant_error(comm, tensors, publish: bool = True) -> float:
     """Max-abs error of ``comm``'s quantized ``allreduce_grad`` against its
     full-precision one on copies of ``tensors`` (this rank's gradients;
-    collective, so every rank calls it)."""
+    collective, so every rank calls it).  Sets the ``comm/quant_abs_err``
+    gauge when telemetry is active and ``publish`` is set."""
     if comm.resolve_comm_dtype() is None:
         raise ValueError(
             "measure_comm_quant_error needs a communicator with a "
@@ -189,8 +190,17 @@ def measure_comm_quant_error(comm, tensors) -> float:
         comm.allreduce_grad(exact)
     finally:
         comm.comm_dtype = saved
-    return max(float((a.float() - b.float()).abs().max())
-               for a, b in zip(quantized, exact))
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(quantized, exact))
+    if publish:
+        from ..observability import reporter as _reporter
+        from ..observability import spans as _spans
+
+        if _spans.telemetry_active():
+            rep = _reporter.get_reporter()
+            if rep is not None:
+                rep.gauge("comm/quant_abs_err", err)
+    return err
 
 
 # ----------------------------------------------------------------------

@@ -32,12 +32,17 @@ saved every ``--checkpoint-every`` steps and a relaunch resumes from the
 newest consistent one at the exact step; ``main`` returns the crc32 of
 each saved generation and of the state the relaunch loaded.  The last
 line is ``final gstep G params_digest XXXXXXXX`` (a crc32 of the
-parameters' bytes).
+parameters' bytes).  ``--elastic`` joins the elastic supervisor's world
+(``python -m chainermn_tpu_torch.tools.elastic``; see the MNIST example)
+and ``--step-log PATH`` writes the JSONL step-event log, a row a step
+with its loss (which then reads back once a step).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import time
 import zlib
 
@@ -114,15 +119,25 @@ def main(argv=None) -> dict:
     p.add_argument("--checkpoint-name", default="imagenet",
                    help="checkpoint set name under --checkpoint-dir")
     p.add_argument("--elastic", action="store_true",
-                   help="not ported yet (ROADMAP A.7, the host planes)")
+                   help="join the elastic supervisor's world "
+                        "(CHAINERMN_TPU_ELASTIC_* env): heartbeats, chaos "
+                        "faults, SIGTERM as preemption, and plan-driven "
+                        "resharding on rescale.  A no-op outside a "
+                        "supervised run.")
     p.add_argument("--step-log", default=None, metavar="PATH",
-                   help="not ported yet (ROADMAP A.7, the host planes)")
+                   help="write a JSONL step-event log (per-step timing, "
+                        "loss, device memory, eval rows); summarize with "
+                        "`python -m chainermn_tpu_torch.tools.obs "
+                        "summarize PATH`")
     args = p.parse_args(argv)
-    for flag, on in (("--elastic", args.elastic),
-                     ("--step-log", args.step_log)):
-        if on:
-            raise SystemExit(f"{flag} belongs to the host planes, which "
-                             "the port does not have yet (ROADMAP A.7)")
+
+    ctx = None
+    if args.elastic:
+        from chainermn_tpu_torch import elastic
+
+        # Forms the supervisor's process group, which the communicator
+        # below finds; None when not running under the supervisor.
+        ctx = elastic.init_from_env(device=args.device)
 
     comm = cmn.create_communicator(args.communicator, device=args.device,
                                    bucket_bytes=args.bucket_bytes)
@@ -201,6 +216,19 @@ def main(argv=None) -> dict:
         return {"model": model.state_dict(), "opt": opt.state_dict(),
                 "epoch": epoch, "step": n_steps}
 
+    # --step-log: a Reporter and a StepRecorder for the whole run.  The
+    # per-step float(loss) then serializes host and device: leave the
+    # flag off when timing img/s.
+    telemetry = contextlib.ExitStack()
+    reporter = recorder = None
+    if args.step_log:
+        from chainermn_tpu_torch import observability as obs
+
+        reporter = obs.Reporter()
+        telemetry.enter_context(obs.scope(reporter))
+        recorder = telemetry.enter_context(
+            obs.StepRecorder(args.step_log, rank=comm.rank))
+
     ckpt = None
     start_epoch = start_step = gstep = 0
     resumed = loaded_digest = None
@@ -213,6 +241,8 @@ def main(argv=None) -> dict:
         add_hook()
         ckpt = create_multi_node_checkpointer(
             args.checkpoint_name, comm, path=args.checkpoint_dir)
+        if ctx is not None:
+            ctx.attach_checkpointer(ckpt)  # arm ckpt_* chaos faults
         loaded, it = ckpt.maybe_load(snapshot(0, 0))
         if it is not None:
             model.load_state_dict(loaded["model"])
@@ -224,6 +254,15 @@ def main(argv=None) -> dict:
             if comm.rank == 0:
                 print(f"resumed from iteration {it} "
                       f"(epoch {start_epoch}, step {start_step})")
+            if ctx is not None:
+                # Re-place parameters and moments for the CURRENT world
+                # through the sharding-plan registry.
+                model, _, plan_report = ctx.reshard(model, opt, comm,
+                                                    plan="dp")
+                if comm.rank == 0:
+                    print(f"elastic_reshard plan=dp ok={plan_report.ok} "
+                          f"leaves={plan_report.n_leaves} "
+                          f"world={comm.size}")
 
     metrics, epoch_losses, step_losses, img_per_s = {}, [], [], []
     for epoch in range(start_epoch, args.epochs):
@@ -240,13 +279,29 @@ def main(argv=None) -> dict:
                 if skip > 0:
                     skip -= 1
                     n_steps += 1
+                    if ctx is not None:
+                        ctx.beat(gstep)     # liveness during replay
                     if args.steps and n_steps >= args.steps:
                         break          # the cap counts replayed steps too
                     continue
+                if ctx is not None:
+                    ctx.beat(gstep)   # chaos faults fire here
+                    if ckpt is not None and ctx.check_preemption(comm):
+                        # Grace-window checkpoint on every rank at the
+                        # same step, then the preemption exit.
+                        ckpt.save(snapshot(epoch, n_steps), gstep,
+                                  block=True)
+                        if comm.rank == 0:
+                            print(f"preempted: checkpoint saved at "
+                                  f"iteration {gstep}", flush=True)
+                        ctx.exit_preempted()
                 losses.append(step(batch))
                 n_seen += batch[0].shape[0] * comm.size
                 n_steps += 1
                 gstep += 1
+                if recorder is not None:
+                    recorder.step(step=gstep - 1, items=args.batchsize,
+                                  loss=float(losses[-1]), epoch=epoch)
                 if ckpt is not None and gstep % args.checkpoint_every == 0:
                     snap = snapshot(epoch, n_steps)
                     saved_digests[gstep] = state_digest(snap)
@@ -276,6 +331,11 @@ def main(argv=None) -> dict:
     digest = params_digest(model.parameters())
     if comm.rank == 0:
         print(f"final gstep {gstep} params_digest {digest:08x}", flush=True)
+    if reporter is not None:
+        agg = reporter.aggregate(comm)
+        if comm.rank == 0:
+            print("telemetry: " + json.dumps(agg), flush=True)
+    telemetry.close()
     return {"metrics": metrics, "epoch_losses": epoch_losses,
             "step_losses": step_losses, "img_per_s": img_per_s,
             "gstep": gstep, "params_digest": f"{digest:08x}",

@@ -20,11 +20,26 @@ and on the CPU::
 At the end it prints ``final gstep G params_digest XXXXXXXX``: the number
 of steps taken and a crc32 of the parameters' bytes, equal between a run
 and the same run stopped and resumed from its checkpoint.
+
+Under the elastic supervisor (``--elastic`` is a no-op outside one)::
+
+    python -m chainermn_tpu_torch.tools.elastic --nproc 2 -- \\
+        python -m chainermn_tpu_torch.examples.train_mnist \\
+        --communicator pure_nccl --elastic --checkpoint-dir ckpt \\
+        --checkpoint-every 1
+
+each rank beats once a step, takes the chaos faults of
+``CHAINERMN_TPU_CHAOS``, checkpoints and exits with the preemption code
+when any rank got SIGTERM, and re-places a resumed state through the
+``dp`` sharding plan.  ``--step-log PATH`` writes the JSONL step-event
+log (``python -m chainermn_tpu_torch.tools.obs summarize PATH``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import time
 import zlib
 
@@ -78,15 +93,26 @@ def main(argv=None) -> dict:
     p.add_argument("--checkpoint-name", default="mnist",
                    help="checkpoint set name under --checkpoint-dir")
     p.add_argument("--elastic", action="store_true",
-                   help="not ported yet (ROADMAP A.7, the host planes)")
+                   help="join the elastic supervisor's world "
+                        "(CHAINERMN_TPU_ELASTIC_* env): heartbeats, chaos "
+                        "faults, SIGTERM as preemption, and plan-driven "
+                        "resharding on rescale.  A no-op outside a "
+                        "supervised run.")
     p.add_argument("--step-log", default=None, metavar="PATH",
-                   help="not ported yet (ROADMAP A.7, the host planes)")
+                   help="write a JSONL step-event log (per-step loss and "
+                        "timing, the train_step span, eval rows); "
+                        "summarize with `python -m "
+                        "chainermn_tpu_torch.tools.obs summarize PATH`.  "
+                        "Point each rank at its own file.")
     args = p.parse_args(argv)
-    for flag, on in (("--elastic", args.elastic),
-                     ("--step-log", args.step_log)):
-        if on:
-            raise SystemExit(f"{flag} belongs to the host planes, which "
-                             "the port does not have yet (ROADMAP A.7)")
+
+    ctx = None
+    if args.elastic:
+        from chainermn_tpu_torch import elastic
+
+        # Forms the supervisor's process group, which the communicator
+        # below finds; None when not running under the supervisor.
+        ctx = elastic.init_from_env(device=args.device)
 
     comm = cmn.create_communicator(
         args.communicator, device=args.device,
@@ -138,6 +164,19 @@ def main(argv=None) -> dict:
         return {"model": None if args.zero_stage == 3 else model.state_dict(),
                 "opt": opt.state_dict(), "epoch": epoch, "step": n_steps}
 
+    # --step-log: a Reporter and a StepRecorder for the whole run; the
+    # instrumented step and the evaluator publish into them.  The per-step
+    # float(loss) below trades async dispatch for a loss a row.
+    telemetry = contextlib.ExitStack()
+    reporter = recorder = None
+    if args.step_log:
+        from chainermn_tpu_torch import observability as obs
+
+        reporter = obs.Reporter()
+        telemetry.enter_context(obs.scope(reporter))
+        recorder = telemetry.enter_context(
+            obs.StepRecorder(args.step_log, rank=comm.rank))
+
     ckpt = None
     start_epoch = start_step = gstep = 0
     resumed = None
@@ -149,6 +188,8 @@ def main(argv=None) -> dict:
         add_hook()
         ckpt = create_multi_node_checkpointer(
             args.checkpoint_name, comm, path=args.checkpoint_dir)
+        if ctx is not None:
+            ctx.attach_checkpointer(ckpt)  # arm ckpt_* chaos faults
         loaded, it = ckpt.maybe_load(snapshot(0, 0))
         if it is not None:
             if loaded["model"] is not None:
@@ -159,6 +200,16 @@ def main(argv=None) -> dict:
             if comm.rank == 0:
                 print(f"resumed from iteration {it} "
                       f"(epoch {start_epoch}, step {start_step})")
+            if ctx is not None and args.zero_stage == 0:
+                # Re-place parameters and moments for the CURRENT world
+                # through the sharding-plan registry: an N -> M restart
+                # is a plan resolved on another world.
+                model, _, plan_report = ctx.reshard(model, opt, comm,
+                                                    plan="dp")
+                if comm.rank == 0:
+                    print(f"elastic_reshard plan=dp ok={plan_report.ok} "
+                          f"leaves={plan_report.n_leaves} "
+                          f"world={comm.size}")
 
     metrics, epoch_losses, mean_losses, img_per_s = {}, [], [], []
     for epoch in range(start_epoch, args.epochs):
@@ -173,13 +224,29 @@ def main(argv=None) -> dict:
             if skip > 0:
                 skip -= 1
                 n_steps += 1
+                if ctx is not None:
+                    ctx.beat(gstep)     # liveness during replay
                 continue
+            if ctx is not None:
+                ctx.beat(gstep)   # chaos faults fire here, deterministically
+                if ckpt is not None and ctx.check_preemption(comm):
+                    # Grace-window checkpoint: every rank arrives here at
+                    # the same step, saves, and exits with the preemption
+                    # code (not a crash).
+                    ckpt.save(snapshot(epoch, n_steps), gstep, block=True)
+                    if comm.rank == 0:
+                        print(f"preempted: checkpoint saved at "
+                              f"iteration {gstep}", flush=True)
+                    ctx.exit_preempted()
             last_loss = step(on_device(batch))
             loss_sum = loss_sum + last_loss
             n_trained += 1
             n_seen += batch[0].shape[0] * comm.size
             n_steps += 1
             gstep += 1
+            if recorder is not None:
+                recorder.step(step=gstep - 1, items=args.batchsize,
+                              loss=float(last_loss), epoch=epoch)
             if ckpt is not None and gstep % args.checkpoint_every == 0:
                 ckpt.save(snapshot(epoch, n_steps), gstep, block=False)
         loss = float(last_loss)               # waits for the device
@@ -204,11 +271,18 @@ def main(argv=None) -> dict:
     digest = params_digest(model.parameters())
     if comm.rank == 0:
         print(f"final gstep {gstep} params_digest {digest:08x}", flush=True)
+    telemetry_summary = None
+    if reporter is not None:
+        telemetry_summary = reporter.aggregate(comm)
+        if comm.rank == 0:
+            print("telemetry: " + json.dumps(telemetry_summary), flush=True)
+    telemetry.close()
     return {"metrics": metrics, "epoch_losses": epoch_losses,
             "epoch_mean_losses": mean_losses,
             "img_per_s": img_per_s, "gstep": gstep,
             "params_digest": f"{digest:08x}", "resumed_from": resumed,
-            "wire": None if wire is None else str(wire).split(".")[1]}
+            "wire": None if wire is None else str(wire).split(".")[1],
+            "telemetry": telemetry_summary}
 
 
 if __name__ == "__main__":

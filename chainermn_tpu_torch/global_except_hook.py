@@ -19,6 +19,14 @@ import traceback
 
 _EXIT_CODE = 13  # distinct from the interpreter's 1: "left by the hook"
 _hook_installed = False
+_current_step = None
+
+
+def set_current_step(step) -> None:
+    """Best-effort step bookmark for the crash postmortem row (the
+    elastic runtime calls this from ``ElasticContext.beat``)."""
+    global _current_step
+    _current_step = int(step)
 
 
 def _safe_rank():
@@ -34,24 +42,47 @@ def _safe_rank():
 
 
 def _write_postmortem(rank, size, exc_type, exc_value, exc_traceback):
-    """Append one JSON crash row to ``CHAINERMN_TPU_POSTMORTEM_FILE`` when
-    it is set (O_APPEND, so concurrent ranks do not tear each other's
-    lines).  Never raises: a failing postmortem must not mask the exit."""
-    path = os.environ.get("CHAINERMN_TPU_POSTMORTEM_FILE")
-    if not path:
-        return
+    """Append one crash row (who, which step, what traceback) before the
+    process vanishes, so a supervisor's postmortem can name the culprit.
+    Two sinks, each best effort and each an O_APPEND JSONL row, so
+    concurrent ranks do not tear each other's lines:
+
+    * the installed :class:`~.observability.step_log.StepRecorder`, when
+      one is live;
+    * the file ``CHAINERMN_TPU_POSTMORTEM_FILE`` names (the elastic
+      supervisor sets it for every rank it spawns).
+
+    Never raises: a failing postmortem must not mask the exit."""
+    if rank < 0:
+        # No process group: the elastic environment still names us.
+        try:
+            rank = int(os.environ.get("CHAINERMN_TPU_ELASTIC_RANK", -1))
+        except ValueError:
+            pass
     tb = "".join(
         traceback.format_exception(exc_type, exc_value, exc_traceback)
     )[-8000:]
-    row = {"event": "crash", "rank": rank, "size": size, "t": time.time(),
+    row = {"event": "crash", "rank": rank, "size": size,
+           "step": _current_step, "t": time.time(),
            "exc": f"{exc_type.__name__}: {exc_value}", "traceback": tb}
     try:
-        fd = os.open(path, os.O_APPEND | os.O_CREAT | os.O_WRONLY, 0o644)
-        try:
-            os.write(fd, (json.dumps(row) + "\n").encode("utf-8"))
-        finally:
-            os.close(fd)
-    except OSError:
+        from .observability.step_log import current_recorder
+
+        rec = current_recorder()
+        if rec is not None:
+            rec.record("crash", rank=rank, size=size, step=_current_step,
+                       exc=row["exc"], traceback=tb)
+    except Exception:  # noqa: BLE001 — the hook must not raise
+        pass
+    try:
+        path = os.environ.get("CHAINERMN_TPU_POSTMORTEM_FILE")
+        if path:
+            fd = os.open(path, os.O_APPEND | os.O_CREAT | os.O_WRONLY, 0o644)
+            try:
+                os.write(fd, (json.dumps(row) + "\n").encode("utf-8"))
+            finally:
+                os.close(fd)
+    except Exception:  # noqa: BLE001
         pass
 
 
@@ -65,7 +96,10 @@ def _handle_uncaught(exc_type, exc_value, exc_traceback):
         "*****************************************************\n"
     )
     traceback.print_exception(exc_type, exc_value, exc_traceback)
-    _write_postmortem(rank, size, exc_type, exc_value, exc_traceback)
+    try:
+        _write_postmortem(rank, size, exc_type, exc_value, exc_traceback)
+    except Exception:  # noqa: BLE001
+        pass
     sys.stderr.flush()
     sys.stdout.flush()
     os._exit(_EXIT_CODE)

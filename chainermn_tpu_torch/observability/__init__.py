@@ -34,6 +34,8 @@ from .step_log import (  # noqa: F401
     current_recorder,
     device_memory_stats,
     read_records,
+    recording,
+    recover,
 )
 from .tracing import (  # noqa: F401
     FlightRecorder,

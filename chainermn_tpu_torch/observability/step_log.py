@@ -17,8 +17,10 @@ File contract:
 * **Rotation** — when a write would push the file past ``rotate_bytes``
   the file rotates through ``path.1 … path.<max_files>`` (highest =
   oldest), bounding disk for soak runs.
-* **Crash-safe reading** — a SIGKILL mid-write leaves at most one
-  truncated final line; :func:`read_records` skips it.
+* **Crash-safe recovery** — a SIGKILL mid-write leaves at most one
+  truncated final line; :func:`read_records` skips it and
+  :func:`recover` truncates it in place, so a resumed run appends to a
+  valid file.
 
 The reference also turns ``jax.monitoring`` compile events into rows;
 eager PyTorch compiles nothing, so that bridge has no counterpart.  Device
@@ -27,6 +29,7 @@ memory comes from the CUDA caching allocator.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -266,3 +269,27 @@ def read_records(path: str, include_rotated: bool = True,
     for p in paths:
         rows.extend(_iter_one(p, strict))
     return rows
+
+
+def recover(path: str) -> int:
+    """Truncate a trailing partial line in place (crash recovery before
+    re-appending).  Returns the number of valid rows retained."""
+    with open(path, "rb") as f:
+        data = f.read()
+    end = data.rfind(b"\n") + 1  # 0 when no newline at all
+    n = 0
+    for line in data[:end].split(b"\n"):
+        if line.strip():
+            json.loads(line)  # strict: retained rows must parse
+            n += 1
+    if end != len(data):
+        with open(path, "r+b") as f:
+            f.truncate(end)
+    return n
+
+
+@contextlib.contextmanager
+def recording(path: str, **kwargs):
+    """``with recording(path) as rec:`` — build, install, close."""
+    with StepRecorder(path, **kwargs) as rec:
+        yield rec

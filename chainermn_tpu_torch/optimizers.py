@@ -64,6 +64,7 @@ update before the learning-rate scale.  The two agree to fp32 rounding;
 
 from __future__ import annotations
 
+import functools
 import inspect
 from typing import Callable, Mapping
 
@@ -114,6 +115,31 @@ def rng_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
     words = np.random.SeedSequence(
         [int(seed), int(step), int(rank), int(micro)]).generate_state(2)
     return (int(words[0]) << 32 | int(words[1])) & ((1 << 63) - 1)
+
+
+def _instrument_step(step_fn):
+    """Telemetry wrapper for a built train step: when a Reporter or
+    StepRecorder is installed (``observability.telemetry_active``) each
+    call runs under ``span("train_step")`` (a profiler annotation and the
+    host's time to return, into both sinks) and bumps the reporter's
+    ``train_step_calls`` counter.  With no telemetry installed the cost
+    is one boolean check.  The span times the host's dispatch, as the
+    reference's does: it adds no device synchronisation."""
+    from .observability import reporter as _rep
+    from .observability import spans as _spans
+
+    @functools.wraps(step_fn)
+    def instrumented(*args, **kwargs):
+        if not _spans.telemetry_active():
+            return step_fn(*args, **kwargs)
+        with _spans.span("train_step"):
+            out = step_fn(*args, **kwargs)
+        rep = _rep.get_reporter()
+        if rep is not None:
+            rep.count("train_step_calls")
+        return out
+
+    return instrumented
 
 
 def _check_batch_divisibility(batch, n_dev, n_accum=1):
@@ -379,6 +405,11 @@ class MultiNodeOptimizer:
         parameters' device seeded with :func:`rng_seed` of (``rng``, the
         step count, this rank, the microbatch) — per-rank dropout that a
         rerun reproduces."""
+        return _instrument_step(self._build_step(
+            loss_fn, n_accum, loss_scale, overlap, local_batch, has_aux, rng))
+
+    def _build_step(self, loss_fn, n_accum, loss_scale, overlap,
+                    local_batch, has_aux, rng):
         if n_accum < 1:
             raise ValueError(f"n_accum must be >= 1, got {n_accum}")
         comm = self.communicator
@@ -508,8 +539,8 @@ class MultiNodeOptimizer:
         ``t`` applies step ``t-1``'s gradients while the buffers update
         from step ``t``.  Gradient accumulation is not exposed, as in the
         reference."""
-        step = self.make_train_step(loss_fn, overlap=overlap,
-                                    local_batch=local_batch)
+        step = self._build_step(loss_fn, 1, None, overlap, local_batch,
+                                False, None)
         floating = [b for b in model_state.buffers()
                     if b.is_floating_point()]
 
@@ -518,7 +549,7 @@ class MultiNodeOptimizer:
             self._mean_over_ranks(floating)
             return loss
 
-        return step_with_state
+        return _instrument_step(step_with_state)
 
     def _mean_over_ranks(self, tensors):
         """Replace each tensor by its mean over the ranks, one collective

@@ -173,20 +173,42 @@ of which fails the run when wrong:
    traffic to its last token, every replica warm), TTFT and per-token
    percentiles, failovers and each process's GPU memory (``nvidia-smi
    --query-compute-apps``) beside 12a's B 8 engine and 13c's threaded
-   fleet.
+   fleet;
+15. the training host planes: (a) phase 4's model, data, seed and AdamW
+   for its 7 steps under a ``Reporter`` and a ``StepRecorder``: the
+   losses bitwise phase 4's, 7 ``train_step`` spans and calls, the
+   ``grad_pack/*`` counters equal to the packer's plan for the LM's
+   gradients, 8 launches of each flash kernel a step, the median step
+   beside phase 4's, ``tools.obs summarize`` and ``step_log.recover`` on
+   a torn copy of the log; (b) the MNIST example under ``python -m
+   chainermn_tpu_torch.tools.elastic --nproc 1`` on the card (``--elastic
+   --checkpoint-every 1 --step-log``), unfaulted and with rank 0
+   SIGKILLed at step 5: one restart, the same parameter digest; (c) 7b's
+   SGD run under the supervisor with rank 0 SIGTERMed at step 3: the
+   grace-window checkpoint, exit code 75, one preemption and no restart,
+   the world resumed from iteration 3 and ending within 7b's resume
+   limits of 7b's uninterrupted run (each parameter tensor within the
+   larger of ``RESUME_REL_L2`` of its norm and ``HP_MOVE_RTOL`` of its
+   movement, plus ``HP_RMS_FLOOR`` a value; the reason above them), each
+   incarnation's start-up and img/s; (d)
+   the native host library built (``native_impl() == "csrc"``), its
+   CRC32C and ``tree_digest`` equal to the pure-Python values, and
+   ``parallel_gather`` timed against ``np.stack`` on one ImageNet batch.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 ``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
 ``{"model_parallel": ...}``, a JSON line ``{"pipeline": ...}``, a JSON
 line ``{"long_context": ...}``, a JSON line ``{"gspmd": ...}``, a JSON
 line ``{"serving": ...}``, a JSON line ``{"serving_cluster": ...}``, a
-JSON line ``{"serving_fleet": ...}``, the card's ``name, power.limit`` line, a
+JSON line ``{"serving_fleet": ...}``, a JSON line ``{"host_planes":
+...}``, the card's ``name, power.limit`` line, a
 JSON line of per-kernel numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -444,7 +466,9 @@ def build_lm(torch, log, zero_stage=0):
         return fused_cross_entropy(h, model.embed.weight, labs,
                                    chunk=FULL["ce_chunk"])
 
-    return opt.make_train_step(loss_fn), (tokens, labels), B * S
+    step = opt.make_train_step(loss_fn)
+    step.model, step.comm = model, comm
+    return step, (tokens, labels), B * S
 
 
 def phase_train(torch, K, log, n_warm, n_timed):
@@ -1117,13 +1141,9 @@ def run_imagenet(log, argv):
     return out
 
 
-def phase_imagenet_example(torch, log, card, tmp):
-    """7b: the example at full width (ResNet-50, 1000 classes, 224 px,
-    global batch 256) over NCCL: SGD, LARS, and a run stopped at a saved
-    step and resumed, against the uninterrupted SGD run."""
+def imagenet_npz(tmp):
+    """7b's data: EX_TRAIN images of seeded noise and their labels."""
     import numpy as np
-
-    from chainermn_tpu_torch.global_except_hook import remove_hook
 
     rng = np.random.default_rng(0)
     s = RESNET["image"]
@@ -1132,9 +1152,24 @@ def phase_imagenet_example(torch, log, card, tmp):
                                              dtype=np.float32),
              labels=rng.integers(0, RESNET["classes"], EX_TRAIN,
                                  dtype=np.int32))
-    base = ["--communicator", "pure_nccl", "--arch", "resnet50",
+    return npz
+
+
+def imagenet_args(npz):
+    return ["--communicator", "pure_nccl", "--arch", "resnet50",
             "--batchsize", str(RESNET["batch"]), "--data-npz", npz,
             "--val-size", str(EX_VAL), "--steps", str(EX_STEPS)]
+
+
+def phase_imagenet_example(torch, log, card, tmp, keep):
+    """7b: the example at full width (ResNet-50, 1000 classes, 224 px,
+    global batch 256) over NCCL: SGD, LARS, and a run stopped at a saved
+    step and resumed, against the uninterrupted SGD run.  ``keep`` gets
+    the SGD run's parameters and last-epoch losses (phase 15c's yardstick)."""
+    from chainermn_tpu_torch.global_except_hook import remove_hook
+
+    npz = imagenet_npz(tmp)
+    base = imagenet_args(npz)
     ck = ["--checkpoint-dir", os.path.join(tmp, "ck"),
           "--checkpoint-every", str(EX_STEPS)]
     plan = [("sgd", ["--epochs", "2"]),
@@ -1188,15 +1223,19 @@ def phase_imagenet_example(torch, log, card, tmp):
         failed.append(f"resumed gstep {resumed['gstep']} != {whole['gstep']}")
     if not (rel <= RESUME_REL_L2 and loss_diff <= RESUME_LOSS_ATOL):
         failed.append(f"resumed run {rel}, {loss_diff} from uninterrupted")
-    del runs
+    keep["params"] = {k: v.detach().float().cpu()
+                      for k, v in whole["model"].named_parameters()}
+    keep["losses"] = list(whole["step_losses"][-1])
+    del runs, whole, stopped, resumed
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError("phase 7b: " + "; ".join(failed))
     return summary
 
 
-def phase_imagenet(torch, log, card):
-    """Phase 7: 7a, 7d (which reuses 7a's batch), 7c, then 7b."""
+def phase_imagenet(torch, log, card, keep):
+    """Phase 7: 7a, 7d (which reuses 7a's batch), 7c, then 7b (``keep``
+    as :func:`phase_imagenet_example`'s)."""
     import tempfile
 
     from chainermn_tpu_torch import create_communicator
@@ -1214,7 +1253,8 @@ def phase_imagenet(torch, log, card):
     del batch
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        out["example"] = phase_imagenet_example(torch, log, card, tmp)
+        out["example"] = phase_imagenet_example(torch, log, card, tmp,
+                                                keep)
     torch.distributed.destroy_process_group()
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 7: {out['wall_s']:.1f}s")
@@ -3398,6 +3438,385 @@ def phase_serving_fleet(torch, K, log, card, keep, serving_cluster):
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the training host planes
+# ---------------------------------------------------------------------------
+
+# 15b: the MNIST example at its defaults but 1 epoch (32 steps), a
+# checkpoint a step, on the card under the supervisor, once unfaulted and
+# once SIGKILLed at step 5.
+HP_MNIST = ["--communicator", "pure_nccl", "--epochs", "1",
+            "--checkpoint-every", "1"]
+HP_JOB_TIMEOUT_S = 300
+# 15c against 7b's run: its incarnations run in other processes, where
+# cuDNN's benchmark can pick other algorithms, and on the card a
+# zero-initialised BatchNorm bias (norm 1.6e-4, all of it its 6 updates)
+# ended 5.6-5.7% of its norm from 7b's (my chip runs, PR 13, calls 3 and
+# 6); the same preemption on the CPU ends bitwise
+# (tests/test_torch_elastic_soak.py).  A resume that restored the wrong
+# state, or skipped or repeated a step, moves a tensor by a whole step's
+# update, 1/6 of its movement or more.  So each tensor is held to the
+# larger of 7b's RESUME_REL_L2 of its norm and HP_MOVE_RTOL of its
+# movement, plus HP_RMS_FLOOR a value for the BatchNorm biases inside the
+# blocks, whose values are rounding noise (relative L2 up to 0.146 between
+# the runs, call 6).
+HP_MOVE_RTOL = 0.1
+HP_RMS_FLOOR = 1e-10
+# 15a: steps with telemetry off and on, alternating, after the 7.
+HP_AB_PAIRS = 5
+# 15d: native CRC32C against the pure-Python one on this many bytes.
+HP_CRC_BYTES = 1 << 18
+
+
+def supervised(log, tmp, name, nproc, chaos, rank_cmd):
+    """``python -m chainermn_tpu_torch.tools.elastic`` around ``rank_cmd``,
+    with a supervisor step log; returns its report, its output and the
+    supervisor's rows."""
+    from chainermn_tpu_torch.observability.step_log import read_records
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sup_log = os.path.join(tmp, f"{name}.sup.jsonl")
+    cmd = [sys.executable, "-m", "chainermn_tpu_torch.tools.elastic",
+           "--nproc", str(nproc), "--workdir", os.path.join(tmp, name),
+           "--step-log", sup_log, "--grace", "10"]
+    if chaos:
+        cmd += ["--chaos", chaos]
+    cmd += ["--", *rank_cmd]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    p = subprocess.run(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True,
+                       timeout=HP_JOB_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    for line in p.stdout.splitlines():
+        if not re.search(r"c10d|socket\.cpp", line):
+            log("  | " + line)
+    reports = [ln for ln in p.stdout.splitlines()
+               if ln.startswith("ELASTIC_REPORT ")]
+    if p.returncode != 0 or not reports:
+        raise AssertionError(f"phase 15 {name}: supervisor exit "
+                             f"{p.returncode}, no clean report")
+    report = json.loads(reports[-1].split(" ", 1)[1])
+    report["wall_s"] = wall
+    return report, p.stdout, read_records(sup_log)
+
+
+def spawn_to_first_step(sup_rows, rank_rows, first_steps):
+    """Seconds from each incarnation's spawn to the end of its first step
+    (rank 0's step row), incarnation by incarnation."""
+    spawns = [r["t"] for r in sup_rows
+              if r.get("event") == "elastic" and r.get("kind") == "spawn"]
+    out = []
+    for t_spawn, first in zip(spawns, first_steps):
+        ends = [r["t"] for r in rank_rows if r.get("event") == "step"
+                and r.get("rank") == 0 and r["step"] == first
+                and r["t"] >= t_spawn]
+        out.append(min(ends) - t_spawn if ends else None)
+    return out
+
+
+def hp_lm_telemetry(torch, K, log, train, tmp):
+    """15a: phase 4's step under a Reporter and a StepRecorder."""
+    import shutil
+
+    from chainermn_tpu_torch import observability as obs
+    from chainermn_tpu_torch.communicators.packing import GradPacker
+    from chainermn_tpu_torch.observability import step_log
+    from chainermn_tpu_torch.tools.obs import summarize
+
+    step, batch, n_tokens = build_lm(torch, log)
+    params = list(step.model.parameters())
+    plan = GradPacker([p.shape for p in params], [p.dtype for p in params],
+                      step.comm.resolve_bucket_bytes())
+    path = os.path.join(tmp, "lm.jsonl")
+    rep = obs.Reporter()
+    n = N_WARMUP + N_TIMED
+    losses, times, host, spans = [], [], [], []
+    with obs.scope(rep), obs.StepRecorder(path) as rec:
+        K.reset_launch_counts()
+        for i in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = step(batch)
+            host.append(time.perf_counter() - t)
+            lv = loss.item()
+            times.append(time.perf_counter() - t)
+            losses.append(lv)
+            row = rec.step(step=i, items=n_tokens, loss=lv)
+            spans.append(row["spans"]["train_step"])
+        launches = dict(K.LAUNCHES)
+    summary = rep.summary()
+    # The same process and model, telemetry off and on step by step:
+    # the host's time to return and the step, HP_AB_PAIRS of each.
+    ab = {"off": {"host": [], "step": []}, "on": {"host": [], "step": []}}
+    rec = obs.StepRecorder(os.path.join(tmp, "lm.ab.jsonl"))
+    for i in range(2 * HP_AB_PAIRS):
+        side = "on" if i % 2 else "off"
+        with contextlib.ExitStack() as on:
+            if side == "on":
+                on.enter_context(obs.scope(obs.Reporter()))
+                step_log.install(rec)
+                on.callback(step_log.uninstall, rec)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = step(batch)
+            ab[side]["host"].append((time.perf_counter() - t) * 1e3)
+            loss.item()
+            ab[side]["step"].append((time.perf_counter() - t) * 1e3)
+            if side == "on":
+                rec.step(step=i, items=n_tokens, loss=loss.item())
+    rec.close()
+    ab = {side: {k: statistics.median(v) for k, v in d.items()}
+          for side, d in ab.items()}
+    torch.distributed.destroy_process_group()
+    del step, batch, params
+    torch.cuda.empty_cache()
+    counters = summary["counters"]
+    want = {"grad_pack/traces": 1, "grad_pack/leaves": plan.n_leaves,
+            "grad_pack/buckets": plan.n_buckets,
+            "grad_pack/payload_bytes": plan.payload_bytes,
+            "grad_pack/pad_bytes": plan.padded_bytes - plan.payload_bytes}
+    got = {k: counters.get(k) for k in want}
+    med = sorted(times[N_WARMUP:])[N_TIMED // 2] * 1e3
+    host_ms = sorted(host[N_WARMUP:])[N_TIMED // 2] * 1e3
+    span_ms = sorted(spans[N_WARMUP:])[N_TIMED // 2] * 1e3
+    summ = summarize(step_log.read_records(path))
+    torn = os.path.join(tmp, "lm.torn.jsonl")
+    shutil.copy(path, torn)
+    with open(torn, "ab") as f:
+        f.write(b'{"event": "step", "rank": 0, "t": 1.5, "st')
+    kept = step_log.recover(torn)
+    torn_steps = sum(1 for r in step_log.read_records(torn, strict=True)
+                     if r.get("event") == "step")
+    bitwise = losses == train["losses"]
+    log(f"15a LM under telemetry: losses {losses} bitwise phase 4's "
+        f"{bitwise}; train_step spans "
+        f"{summary['scalars']['span/train_step']['count']}, "
+        f"train_step_calls {counters.get('train_step_calls')}; grad_pack "
+        f"{got} (plan {want}); launches {launches}; median step "
+        f"{med:.2f} ms with telemetry against phase 4's "
+        f"{train['step_ms']:.2f} ms without; host return {host_ms:.2f} ms "
+        f"(phase 4 {train['host_ms']:.2f}), span {span_ms:.2f} ms; "
+        f"alternating {HP_AB_PAIRS} pairs here: step {ab['on']['step']:.2f} "
+        f"ms on, {ab['off']['step']:.2f} off, host return "
+        f"{ab['on']['host']:.2f} ms on, {ab['off']['host']:.2f} off; "
+        f"summarize steps {summ['steps']['count']}; recover kept {kept} "
+        f"rows, {torn_steps} step rows")
+    bad = []
+    if not bitwise:
+        bad.append(f"losses {losses} != phase 4's {train['losses']}")
+    if summary["scalars"]["span/train_step"]["count"] != n or \
+            counters.get("train_step_calls") != n:
+        bad.append("train_step spans/calls != steps")
+    if got != want:
+        bad.append(f"grad_pack counters {got} != the plan's {want}")
+    for name in KERNELS:
+        if launches[name] != 8 * n:
+            bad.append(f"{name} launched {launches[name]} times, not {8 * n}")
+    if summ["steps"]["count"] != n or torn_steps != n:
+        bad.append(f"step log: summarize {summ['steps']['count']} steps, "
+                   f"{torn_steps} after recover")
+    if bad:
+        raise AssertionError("phase 15a: " + "; ".join(bad))
+    return {"losses": losses, "bitwise_phase4": bitwise, "step_ms": med,
+            "phase4_step_ms": train["step_ms"], "host_ms": host_ms,
+            "phase4_host_ms": train["host_ms"], "span_ms": span_ms,
+            "alternating": ab,
+            "launches": launches, "grad_pack": got,
+            "train_step_calls": counters.get("train_step_calls")}
+
+
+def hp_mnist_supervised(log, tmp):
+    """15b: MNIST under the supervisor on the card, unfaulted and with
+    rank 0 SIGKILLed at step 5: the same parameters bitwise."""
+    from chainermn_tpu_torch.observability.step_log import read_records
+
+    runs = {}
+    for name, chaos in (("unfaulted", None), ("kill", "kill:rank=0:step=5")):
+        rank_log = os.path.join(tmp, f"mnist_{name}.jsonl")
+        cmd = [sys.executable, "-m", "chainermn_tpu_torch.examples."
+               "train_mnist", *HP_MNIST, "--elastic", "--checkpoint-dir",
+               os.path.join(tmp, f"ck_{name}"), "--step-log", rank_log]
+        log(f"15b mnist {name}: tools.elastic --nproc 1"
+            + (f" --chaos {chaos}" if chaos else "") + f" -- {' '.join(cmd[1:])}")
+        report, out, sup_rows = supervised(log, tmp, f"mnist_{name}", 1,
+                                           chaos, cmd)
+        rows = read_records(rank_log)
+        firsts = [0] + ([report["resume_generation"]] if chaos else [])
+        report["startup_s"] = spawn_to_first_step(sup_rows, rows, firsts)
+        ips = [float(m.group(1).replace(",", "")) for m in
+               re.finditer(r"\(([0-9,.]+) img/s\)", out)]
+        report["img_per_s"] = ips
+        runs[name] = report
+        log(f"15b mnist {name}: report {json.dumps(report)}")
+    clean, kill = runs["unfaulted"], runs["kill"]
+    bad = []
+    if kill["status"] != "ok" or kill["restarts"] != 1 \
+            or kill["resume_generation"] is None:
+        bad.append(f"killed run report {kill}")
+    if clean["restarts"] or kill["params_digest"] != clean["params_digest"]:
+        bad.append(f"digest {kill['params_digest']} against unfaulted "
+                   f"{clean['params_digest']}")
+    if bad:
+        raise AssertionError("phase 15b: " + "; ".join(bad))
+    return runs
+
+
+def hp_param_distance(got, want, init):
+    """Per tensor: relative L2, and the share of the limit reached: the
+    larger of 7b's RESUME_REL_L2 of the norm and HP_MOVE_RTOL of how far
+    the tensor moved from ``init``, plus HP_RMS_FLOOR a value."""
+    rel, share = {}, {}
+    for k, v in want.items():
+        diff = (got[k].float() - v).norm().item()
+        norm = v.norm().item()
+        rel[k] = diff / max(norm, 1e-30)
+        share[k] = diff / (max(RESUME_REL_L2 * norm,
+                               HP_MOVE_RTOL * (v - init[k]).norm().item())
+                           + HP_RMS_FLOOR * math.sqrt(v.numel()))
+    worst = max(share, key=share.get)
+    return {"worst": worst, "share": share[worst], "rel_at_worst": rel[worst],
+            "max_rel": max(rel.values()), "max_rel_at": max(rel, key=rel.get)}
+
+
+def hp_imagenet_supervised(torch, log, tmp, ref):
+    """15c: 7b's SGD run at full width under the supervisor with rank 0
+    SIGTERMed at step 3: the preemption exit, the resumed world, and the
+    end within the resume limits of 7b's uninterrupted run."""
+    from chainermn_tpu_torch import create_communicator
+    from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
+    from chainermn_tpu_torch.models.resnet import ResNet50
+    from chainermn_tpu_torch.observability.step_log import read_records
+
+    npz = imagenet_npz(tmp)
+    ck = os.path.join(tmp, "ck_imagenet")
+    rank_log = os.path.join(tmp, "imagenet.jsonl")
+    cmd = [sys.executable, "-m", "chainermn_tpu_torch.examples."
+           "train_imagenet", *imagenet_args(npz), "--epochs", "2",
+           "--elastic", "--checkpoint-dir", ck, "--checkpoint-every",
+           str(EX_STEPS), "--step-log", rank_log]
+    chaos = f"term:rank=0:step={EX_STEPS}"
+    log(f"15c imagenet: tools.elastic --nproc 1 --chaos {chaos} -- "
+        f"{' '.join(cmd[1:])}")
+    torch.cuda.empty_cache()
+    report, out, sup_rows = supervised(log, tmp, "imagenet", 1, chaos, cmd)
+    rows = [r for r in read_records(rank_log)
+            if r.get("event") == "step" and r.get("rank") == 0]
+    last = {r["step"]: r["loss"] for r in rows}
+    losses = [last[g] for g in range(EX_STEPS, 2 * EX_STEPS)]
+    preempted = [r for r in sup_rows if r.get("event") == "elastic"
+                 and r.get("kind") == "preempted"]
+    codes = preempted[0]["codes"] if preempted else None
+    startup = spawn_to_first_step(sup_rows, rows, [0, EX_STEPS])
+    ips = [float(m.group(1).replace(",", "")) for m in
+           re.finditer(r"([0-9,.]+) img/s \(", out)]
+    comm = create_communicator("pure_nccl", device="cuda")
+    saved, it = create_multi_node_checkpointer(
+        "imagenet", comm, path=ck).maybe_load()
+    torch.distributed.destroy_process_group()
+    init = {k: v.detach().float() for k, v in ResNet50(
+        num_classes=RESNET["classes"], device="cpu", seed=0
+    ).named_parameters()}
+    dist = hp_param_distance(
+        {k: saved["model"][k] for k in ref["params"]}, ref["params"], init)
+    loss_diff = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+    res = {"report": report, "exit_codes": codes, "final_generation": it,
+           "losses": losses, "ref_losses": ref["losses"],
+           "loss_diff_vs_7b": loss_diff, "params_vs_7b": dist,
+           "startup_s": startup, "img_per_s": ips}
+    log(f"15c imagenet: report {json.dumps(report)}; preemption exit codes "
+        f"{codes}; resumed from {report['resume_generation']}; last-epoch "
+        f"losses {losses} against 7b's {ref['losses']}: diff "
+        f"{loss_diff:.3g} (limit {RESUME_LOSS_ATOL}); worst parameter "
+        f"{dist['worst']} at {dist['share']:.3g} of its limit (relative L2 "
+        f"{dist['rel_at_worst']:.3g}; worst relative L2 {dist['max_rel']:.3g} "
+        f"at {dist['max_rel_at']}); spawn to first step {startup} s; img/s "
+        f"by incarnation {ips}")
+    bad = []
+    if report["status"] != "ok" or report["preemptions"] != 1 \
+            or report["restarts"] != 0:
+        bad.append(f"report {report}")
+    if codes != {"0": 75}:
+        bad.append(f"preemption exit codes {codes}")
+    if f"preempted: checkpoint saved at iteration {EX_STEPS}" not in out:
+        bad.append("no grace-window checkpoint line")
+    if report["resume_generation"] != EX_STEPS or it != 2 * EX_STEPS:
+        bad.append(f"resumed from {report['resume_generation']}, last "
+                   f"generation {it}")
+    if not (dist["share"] <= 1.0 and loss_diff <= RESUME_LOSS_ATOL):
+        bad.append(f"{dist['worst']} at {dist['share']} of its limit, "
+                   f"losses {loss_diff} from 7b's uninterrupted run")
+    if bad:
+        raise AssertionError("phase 15c: " + "; ".join(bad))
+    return res
+
+
+def hp_host_pieces(torch, log):
+    """15d: the native host library: built, equal to the CPU's values,
+    and ``parallel_gather`` timed against ``np.stack``."""
+    import numpy as np
+
+    from chainermn_tpu_torch.utils import native
+
+    impl = native.native_impl()
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 256, HP_CRC_BYTES, dtype=np.uint8)
+    crc, crc_py = native.crc32c(data), native._crc32c_py(data, 0)
+    tree = {"w": torch.randn(64, 33, device="cuda").bfloat16(),
+            "b": torch.randn(33, device="cuda"),
+            "n": [torch.arange(7, device="cuda")]}
+    digest = native.tree_digest(tree)
+    want = 0
+    for leaf in (tree["b"], tree["n"][0], tree["w"]):
+        raw = leaf.cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+        want = native._crc32c_py(raw, want)
+    s = RESNET["image"]
+    items = [rng.standard_normal((s, s, 3), dtype=np.float32)
+             for _ in range(RESNET["batch"])]
+    times = {"parallel_gather": [], "np_stack": []}
+    for _ in range(5):
+        for name, fn in (("parallel_gather", native.parallel_gather),
+                         ("np_stack", np.stack)):
+            t = time.perf_counter()
+            out = fn(items)
+            times[name].append((time.perf_counter() - t) * 1e3)
+    same = np.array_equal(native.parallel_gather(items), np.stack(items))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    res = {"native_impl": impl, "crc32c_impl": native.crc32c_impl(),
+           "crc32c": crc, "crc32c_cpu": crc_py, "tree_digest": digest,
+           "tree_digest_cpu": want, "gather_ms": med,
+           "gather_equal": bool(same),
+           "batch_mib": out.nbytes / 2**20}
+    log(f"15d host: native_impl {impl} (crc32c {res['crc32c_impl']}); "
+        f"crc32c {crc:08x} against the CPU's {crc_py:08x}; tree_digest "
+        f"{digest:08x} against {want:08x}; one ImageNet batch "
+        f"({res['batch_mib']:.0f} MiB): parallel_gather "
+        f"{med['parallel_gather']:.2f} ms, np.stack {med['np_stack']:.2f} "
+        f"ms (median of 5), equal {same}")
+    if impl != "csrc" or crc != crc_py or digest != want or not same:
+        raise AssertionError(f"phase 15d: {res}")
+    return res
+
+
+def phase_host_planes(torch, K, log, card, train, imagenet_ref):
+    """Phase 15: (a) the LM step under telemetry, (b) MNIST and (c)
+    ImageNet under the elastic supervisor, (d) the native host library."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["lm_telemetry"] = hp_lm_telemetry(torch, K, log, train, tmp)
+        out["mnist_supervised"] = hp_mnist_supervised(log, tmp)
+        out["imagenet_supervised"] = hp_imagenet_supervised(
+            torch, log, tmp, imagenet_ref)
+    out["host"] = hp_host_pieces(torch, log)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 15: {out['wall_s']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -3454,7 +3873,8 @@ def main(argv=None) -> int:
     dp_surface = {"mnist": phase_mnist(torch, log, card),
                   "lm_zero3": phase_lm_zero3(torch, K, log, train),
                   "card": card}
-    imagenet = phase_imagenet(torch, log, card)
+    imagenet_ref = {}
+    imagenet = phase_imagenet(torch, log, card, imagenet_ref)
     model_parallel = phase_model_parallel(torch, log, card)
     pipeline = phase_pipeline(torch, log, card)
     long_context = phase_long_context(torch, K, log, card)
@@ -3465,6 +3885,8 @@ def main(argv=None) -> int:
     serving_fleet = phase_serving_fleet(torch, K, log, card, keep,
                                         serving_cluster)
     del keep
+    host_planes = phase_host_planes(torch, K, log, card, train, imagenet_ref)
+    del imagenet_ref
 
     kernels = []
     for name, (src, replaces) in KERNELS.items():
@@ -3490,6 +3912,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"serving_cluster": serving_cluster}), flush=True)
     print(json.dumps({"serving_fleet": serving_fleet}), flush=True)
+    print(json.dumps({"host_planes": host_planes}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -183,23 +183,34 @@ def test_one_rank_allreduce_and_broadcast_keep_values():
     assert torch.equal(params[0], torch.ones(3))
 
 
-def test_one_rank_allreduce_runs_no_collective_and_keeps_the_cast():
-    """On one rank the mean is the input: no bucket plan and no
-    collective, but a narrower ``allreduce_grad_dtype`` still rounds the
-    gradients as the reference's cast round trip does."""
+def test_one_rank_allreduce_runs_no_collective_and_keeps_the_cast(
+        monkeypatch):
+    """On one rank the mean is the input: no packing and no collective
+    (the bucket plan is built once, for the telemetry report only), but a
+    narrower ``allreduce_grad_dtype`` still rounds the gradients as the
+    reference's cast round trip does."""
+    from chainermn_tpu_torch.communicators import packing
+
     comm = create_communicator("pure_nccl", device="cpu",
                                allreduce_grad_dtype=torch.bfloat16)
 
     def no_collective(tensors):
         raise AssertionError("a collective ran on one rank")
 
+    def no_packing(*a, **k):
+        raise AssertionError("a bucket was packed on one rank")
+
     comm._allreduce_impl = no_collective
+    monkeypatch.setattr(packing.GradPacker, "pack", no_packing)
+    monkeypatch.setattr(packing.GradPacker, "pack_bucket", no_packing)
     grads = [torch.from_numpy(g.astype(np.float32)) for g in _grad_list()]
     want = [g.to(torch.bfloat16).float() for g in grads]
     comm.allreduce_grad(grads)
+    comm.allreduce_grad([g.clone() for g in grads])
     for g, w in zip(grads, want):
         assert g.dtype == torch.float32 and torch.equal(g, w)
-    assert comm._packers == {}
+    (plan,) = comm._packers.values()
+    assert set(plan.dtypes) == {torch.bfloat16}
 
 
 def test_scatter_inter_hierarchical_parity(tmp_path):

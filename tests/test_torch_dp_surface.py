@@ -397,8 +397,15 @@ def test_overlapped_allreduce_byte_equal_to_eager(comm_runs, case, size):
 
 def test_no_hooks_on_one_rank_full_precision(monkeypatch):
     """At world 1 on a full-precision wire the step installs no hooks and
-    runs no collective: the mean is the gradient itself."""
+    runs no collective and no packing (the bucket plan is built once, for
+    the telemetry report only): the mean is the gradient itself."""
     from chainermn_tpu_torch import create_multi_node_optimizer
+
+    def no_packing(*a, **k):
+        raise AssertionError("a bucket was packed on one rank")
+
+    monkeypatch.setattr(packing.GradPacker, "pack", no_packing)
+    monkeypatch.setattr(packing.GradPacker, "pack_bucket", no_packing)
 
     monkeypatch.delenv(quant.ENV_COMM_DTYPE, raising=False)
     net = worker._Net()
@@ -414,7 +421,8 @@ def test_no_hooks_on_one_rank_full_precision(monkeypatch):
     mno.init()
     step = mno.make_train_step(lambda b: net(b).sum())
     step(torch.ones(4, 6))
-    assert mno._overlap is None and comm._packers == {}
+    step(torch.ones(4, 6))
+    assert mno._overlap is None and len(comm._packers) == 1
 
 
 # -- communicators ---------------------------------------------------------

@@ -278,7 +278,20 @@ def test_example_resumes_from_its_checkpoint(tmp_path, capsys):
     assert second["step_losses"][-1] == whole["step_losses"][-1]
 
 
-@pytest.mark.parametrize("flag", [["--elastic"], ["--step-log", "x.jsonl"]])
-def test_example_refuses_host_plane_flags(flag):
-    with pytest.raises(SystemExit, match="A.7"):
-        train_imagenet.main(SMALL + flag)
+def test_example_step_log_and_elastic_outside_a_supervisor(tmp_path):
+    """``--step-log`` records each step's loss (read back once a step) and
+    an eval row an epoch; ``--elastic`` outside the supervisor is a plain
+    run with the same losses and parameters."""
+    from chainermn_tpu_torch.observability.step_log import read_records
+
+    small = SMALL + ["--arch", "resnet18", "--epochs", "2"]
+    plain = train_imagenet.main(small)
+    log = tmp_path / "steps.jsonl"
+    out = train_imagenet.main(small + ["--elastic", "--step-log", str(log)])
+    assert out["params_digest"] == plain["params_digest"]
+    rows = read_records(str(log))
+    steps = [r for r in rows if r["event"] == "step"]
+    assert [r["step"] for r in steps] == list(range(out["gstep"]))
+    assert [r["loss"] for r in steps] == \
+        [x for epoch in out["step_losses"] for x in epoch]
+    assert len([r for r in rows if r["event"] == "eval"]) == 2

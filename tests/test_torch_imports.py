@@ -105,3 +105,43 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+HOST_PLANE_WORKERS = ("_torch_elastic_dummy_worker.py",
+                      "_torch_elastic_train_worker.py",
+                      "_torch_telemetry_worker.py")
+
+
+def test_host_plane_workers_import_no_jax():
+    """The elastic and telemetry test workers run the port alone: no
+    import statement names a forbidden package, and each imports with
+    them poisoned."""
+    tests = REPO / "tests"
+    bad = []
+    for name in HOST_PLANE_WORKERS:
+        path = tests / name
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{name}:{node.lineno} {n}" for n in names
+                    if _forbidden(n)]
+    assert not bad, bad
+    mods = [n[:-3] for n in HOST_PLANE_WORKERS]
+    code = "\n".join([
+        "import importlib, sys",
+        f"for name in {FORBIDDEN!r}:",
+        "    sys.modules[name] = None",
+        f"for mod in {mods!r}:",
+        "    importlib.import_module(mod)",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(REPO),
+                                                       str(tests)]))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")

@@ -247,10 +247,27 @@ def test_example_resumes_from_its_checkpoint(tmp_path, capsys):
     assert second["gstep"] == whole["gstep"] == 8
 
 
-@pytest.mark.parametrize("flag", [["--elastic"], ["--step-log", "x.jsonl"]])
-def test_example_refuses_host_plane_flags(flag):
-    with pytest.raises(SystemExit, match="A.7"):
-        train_mnist.main(SMALL + flag)
+def test_example_step_log_and_elastic_outside_a_supervisor(tmp_path):
+    """``--step-log`` writes a step row a step (its loss and the
+    ``train_step`` span) and an eval row an epoch, which ``tools.obs``
+    reads; ``--elastic`` outside the supervisor is a plain run: the same
+    parameters."""
+    from chainermn_tpu_torch.observability.step_log import read_records
+    from chainermn_tpu_torch.tools.obs import summarize
+
+    small = SMALL + ["--epochs", "2"]
+    plain = train_mnist.main(small)
+    log = tmp_path / "steps.jsonl"
+    out = train_mnist.main(small + ["--elastic", "--step-log", str(log)])
+    assert out["params_digest"] == plain["params_digest"]
+    rows = read_records(str(log))
+    steps = [r for r in rows if r["event"] == "step"]
+    assert [r["step"] for r in steps] == list(range(out["gstep"]))
+    assert all("train_step" in r["spans"] and r["items"] == 64
+               for r in steps)
+    assert len([r for r in rows if r["event"] == "eval"]) == 2
+    assert summarize(rows)["steps"]["count"] == out["gstep"]
+    assert out["telemetry"]["counters"]["train_step_calls"] == out["gstep"]
 
 
 def test_example_int8_wire_converges():

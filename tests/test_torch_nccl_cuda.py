@@ -832,3 +832,63 @@ def test_serving_fleet_across_cards_survives_kill9():
           f"{same}/{len(streams)} streams identical to one card's, "
           f"teacher-forced difference {worst:.3g}; streamed "
           f"{[r['streamed'] for r in reports]}")
+
+
+# MNIST under the elastic supervisor across four cards: every step's
+# global batch is the whole training set (240 images, which 4 and 3
+# divide), so a rescaled world computes the same sums in another order
+# and holds the CPU soak's limit (tests/test_torch_elastic_soak.py).
+ELASTIC_CARDS_MNIST = ["--communicator", "pure_nccl", "--batchsize", "240",
+                       "--train-size", "240", "--val-size", "240",
+                       "--epochs", "12", "--checkpoint-every", "1"]
+
+
+def _elastic_mnist(tmp, *extra):
+    import os
+    import subprocess
+    import sys
+
+    from chainermn_tpu_torch.observability.step_log import read_records
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rank_log = tmp / "ranks.jsonl"
+    cmd = [sys.executable, "-m", "chainermn_tpu_torch.tools.elastic",
+           "--nproc", "4", "--workdir", str(tmp / "work"), "--grace", "10",
+           *extra, "--", sys.executable, "-m",
+           "chainermn_tpu_torch.examples.train_mnist", *ELASTIC_CARDS_MNIST,
+           "--elastic", "--checkpoint-dir", str(tmp / "ck"),
+           "--step-log", str(rank_log)]
+    p = subprocess.run(cmd, cwd=repo, stdout=subprocess.PIPE,
+                       stderr=subprocess.STDOUT, text=True,
+                       timeout=JOIN_TIMEOUT_S,
+                       env=dict(os.environ, PYTHONPATH=repo))
+    line = [ln for ln in p.stdout.splitlines()
+            if ln.startswith("ELASTIC_REPORT ")]
+    assert p.returncode == 0 and line, p.stdout[-4000:]
+    losses = {r["step"]: r["loss"] for r in read_records(str(rank_log))
+              if r.get("event") == "step" and r.get("rank") == 0}
+    return json.loads(line[-1].split(" ", 1)[1]), p.stdout, losses
+
+
+@pytest.mark.cuda
+def test_elastic_mnist_rescales_4_to_3_across_cards(tmp_path):
+    """``tools.elastic --nproc 4 --rescale-on-failure`` around the MNIST
+    example over NCCL, rank 1 SIGKILLed at step 5: the world restarts at
+    3, re-placed through plan ``dp``, and every loss stays within 2e-3 of
+    the unfaulted four-card run's."""
+    _four()
+    oracle, _, want = _elastic_mnist(tmp_path / "oracle")
+    assert oracle["status"] == "ok" and oracle["incarnations"] == 1
+    report, out, losses = _elastic_mnist(
+        tmp_path / "rescale", "--rescale-on-failure",
+        "--chaos", "kill:rank=1:step=5")
+    assert report["status"] == "ok" and report["world"] == 3, report
+    assert report["restarts"] == 1, report
+    assert "elastic_reshard plan=dp ok=True" in out and "world=3" in out
+    assert sorted(losses) == sorted(want) == list(range(12))
+    worst = max(abs(losses[g] - want[g]) / max(1.0, abs(want[g]))
+                for g in want)
+    print(f"elastic MNIST 4 -> 3 cards: resumed from "
+          f"{report['resume_generation']}, worst loss difference {worst:.3g} "
+          f"(limit 2e-3), {report}")
+    assert worst <= 2e-3, (losses, want)
