@@ -17,9 +17,15 @@ Both sources build in parallel.  Which kernel a call runs (``wgmma`` or
 ``simt``) follows one rule in ``csrc/flash_common.cuh``; :func:`route`
 reports it.
 
-Every wrapper here takes its kernel's plain PyTorch twin only when the
-tensors lie on the CPU; for CUDA tensors it launches the kernel or
-raises.  Each launch adds one to :data:`LAUNCHES`.
+Each kernel is also a ``torch.library`` custom op
+(``chainermn_torch::flash_fwd``, ``::flash_dq``, ``::flash_dkv``) that
+declares its real inputs and outputs, with a fake implementation for
+meta and fake tensors, so the dispatcher (a ``TorchDispatchMode``, the
+profiler, ``opcheck``) sees one op taking q, k, v and giving o and lse
+where the raw-pointer launch alone would show only the allocations.
+The op's body is the wrapper's device switch: the plain PyTorch twin
+only when the tensors lie on the CPU; for CUDA tensors it launches the
+kernel or raises.  Each launch adds one to :data:`LAUNCHES`.
 
 Layouts at this boundary are the reference's: ``(BH, S, D)`` q/k/v/o
 (k/v may carry ``BH / G`` rows for GQA: q row ``b`` reads kv row
@@ -37,8 +43,10 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import Optional, Tuple
 
 import torch
+from torch import Tensor
 
 _NEG_INF = -1e30
 
@@ -340,18 +348,24 @@ def flash_dkv_plain(q, k, v, do, lse, delta, scale, causal, window=None,
 
 
 # ---------------------------------------------------------------------------
-# Wrappers
+# Custom ops: the device switch and the launches
 # ---------------------------------------------------------------------------
 
 
-def flash_fwd(q, k, v, scale, causal, window=None, q_seg=None, kv_seg=None):
-    """Flash forward over ``(BH, S, D)``: returns ``(o, lse)``."""
-    tensors = _check(q, k, v, (), (q_seg, kv_seg), window)
+def _segs(q_seg, kv_seg):
+    return [t for t in (q_seg, kv_seg) if t is not None]
+
+
+@torch.library.custom_op("chainermn_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, scale: float,
+                  causal: bool, window: Optional[int],
+                  q_seg: Optional[Tensor],
+                  kv_seg: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, causal, window, q_seg, kv_seg)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd runs on cuda or cpu, not {q.device}")
-    _cuda_ready(q, tensors)
+    _cuda_ready(q, [q, k, v, *_segs(q_seg, kv_seg)])
     lib = _lib("flash_fwd")
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[0], q.shape[1], 1, dtype=torch.float32,
@@ -365,6 +379,84 @@ def flash_fwd(q, k, v, scale, causal, window=None, q_seg=None, kv_seg=None):
     _raise_on(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return o, lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, scale, causal, window, q_seg, kv_seg):
+    return (torch.empty_like(q),
+            q.new_empty((q.shape[0], q.shape[1], 1), dtype=torch.float32))
+
+
+@torch.library.custom_op("chainermn_torch::flash_dq", mutates_args=())
+def _flash_dq_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
+                 delta: Tensor, scale: float, causal: bool,
+                 window: Optional[int], q_seg: Optional[Tensor],
+                 kv_seg: Optional[Tensor]) -> Tensor:
+    if q.device.type == "cpu":
+        return flash_dq_plain(q, k, v, do, lse, delta, scale, causal, window,
+                              q_seg, kv_seg)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_dq runs on cuda or cpu, not {q.device}")
+    _cuda_ready(q, [q, k, v, do, lse, delta, *_segs(q_seg, kv_seg)])
+    lib = _lib("flash_bwd")
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.chainermn_flash_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+            dq.data_ptr(), *_tail(q, k, scale, causal, window),
+        )
+    _raise_on(err, "flash_dq")
+    LAUNCHES["flash_dq"] += 1
+    return dq
+
+
+@_flash_dq_op.register_fake
+def _(q, k, v, do, lse, delta, scale, causal, window, q_seg, kv_seg):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("chainermn_torch::flash_dkv", mutates_args=())
+def _flash_dkv_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor, lse: Tensor,
+                  delta: Tensor, scale: float, causal: bool,
+                  window: Optional[int], q_seg: Optional[Tensor],
+                  kv_seg: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+    if q.device.type == "cpu":
+        return flash_dkv_plain(q, k, v, do, lse, delta, scale, causal,
+                               window, q_seg, kv_seg)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_dkv runs on cuda or cpu, not {q.device}")
+    _cuda_ready(q, [q, k, v, do, lse, delta, *_segs(q_seg, kv_seg)])
+    lib = _lib("flash_bwd")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.chainermn_flash_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+            dk.data_ptr(), dv.data_ptr(), *_tail(q, k, scale, causal, window),
+        )
+    _raise_on(err, "flash_dkv")
+    LAUNCHES["flash_dkv"] += 1
+    return dk, dv
+
+
+@_flash_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, scale, causal, window, q_seg, kv_seg):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: argument checks, then the custom op
+# ---------------------------------------------------------------------------
+
+
+def flash_fwd(q, k, v, scale, causal, window=None, q_seg=None, kv_seg=None):
+    """Flash forward over ``(BH, S, D)``: returns ``(o, lse)``."""
+    _check(q, k, v, (), (q_seg, kv_seg), window)
+    return torch.ops.chainermn_torch.flash_fwd(
+        q, k, v, float(scale), bool(causal),
+        None if window is None else int(window), q_seg, kv_seg)
 
 
 def _check_rows(q, do, lse, delta):
@@ -381,24 +473,10 @@ def flash_dq(q, k, v, do, lse, delta, scale, causal, window=None,
     """dQ of flash attention from the saved row LSE and
     ``delta = rowsum(dO * O) - dlse``."""
     _check_rows(q, do, lse, delta)
-    tensors = _check(q, k, v, (do, lse, delta), (q_seg, kv_seg), window)
-    if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, do, lse, delta, scale, causal, window,
-                              q_seg, kv_seg)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_dq runs on cuda or cpu, not {q.device}")
-    _cuda_ready(q, tensors)
-    lib = _lib("flash_bwd")
-    dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.chainermn_flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-            dq.data_ptr(), *_tail(q, k, scale, causal, window),
-        )
-    _raise_on(err, "flash_dq")
-    LAUNCHES["flash_dq"] += 1
-    return dq
+    _check(q, k, v, (do, lse, delta), (q_seg, kv_seg), window)
+    return torch.ops.chainermn_torch.flash_dq(
+        q, k, v, do, lse, delta, float(scale), bool(causal),
+        None if window is None else int(window), q_seg, kv_seg)
 
 
 def flash_dkv(q, k, v, do, lse, delta, scale, causal, window=None,
@@ -406,22 +484,7 @@ def flash_dkv(q, k, v, do, lse, delta, scale, causal, window=None,
     """dK, dV of flash attention; a GQA group's query heads reduce inside
     the kernel."""
     _check_rows(q, do, lse, delta)
-    tensors = _check(q, k, v, (do, lse, delta), (q_seg, kv_seg), window)
-    if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, do, lse, delta, scale, causal,
-                               window, q_seg, kv_seg)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_dkv runs on cuda or cpu, not {q.device}")
-    _cuda_ready(q, tensors)
-    lib = _lib("flash_bwd")
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = lib.chainermn_flash_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-            dk.data_ptr(), dv.data_ptr(), *_tail(q, k, scale, causal, window),
-        )
-    _raise_on(err, "flash_dkv")
-    LAUNCHES["flash_dkv"] += 1
-    return dk, dv
+    _check(q, k, v, (do, lse, delta), (q_seg, kv_seg), window)
+    return torch.ops.chainermn_torch.flash_dkv(
+        q, k, v, do, lse, delta, float(scale), bool(causal),
+        None if window is None else int(window), q_seg, kv_seg)

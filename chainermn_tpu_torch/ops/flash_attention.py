@@ -6,8 +6,10 @@ FlashAttention-2 backward that recomputes probabilities from one saved
 fp32 log-sum-exp per row, so neither pass materializes the S x S matrix.
 The three Pallas kernels of the reference become the CUDA kernels of
 :mod:`chainermn_tpu_torch.ops._kernels` (``flash_fwd``, ``flash_dq``,
-``flash_dkv``); on CPU tensors each falls back to its plain PyTorch twin,
-which is what the CPU tests run.
+``flash_dkv``), each registered as a custom op
+(``torch.ops.chainermn_torch.*``) that the autograd function below calls,
+so a dispatch mode sees their real inputs and outputs; on CPU tensors
+each op runs its plain PyTorch twin, which is what the CPU tests run.
 
 Public layouts are the reference's: ``(B, S, H, D)`` at
 :func:`flash_attention`, ``(B*H, S, D)`` at the kernel boundary (the

@@ -55,6 +55,9 @@ runs the forward on this rank's slice with its local batch statistics,
 as the reference does (its BatchNorm has no ``axis_name``), then averages
 the floating buffers over the ranks in one collective.
 
+``CHAINERMN_TPU_LINT=1`` (or ``strict``) lints a built step at its first
+call (:mod:`.analysis`; the capture leaves every tensor as it found it).
+
 AdamW note: ``torch.optim.AdamW`` decays the parameter multiplicatively
 before the Adam step, ``optax.adamw`` adds ``weight_decay * param`` to the
 update before the learning-rate scale.  The two agree to fp32 rounding;
@@ -66,6 +69,8 @@ from __future__ import annotations
 
 import functools
 import inspect
+import os
+import time
 from typing import Callable, Mapping
 
 import torch
@@ -140,6 +145,73 @@ def _instrument_step(step_fn):
         return out
 
     return instrumented
+
+
+def _run_first_call_lint(step_fn, opt, state, mode, args, kwargs):
+    """One lint pass over the step at its first call: the step runs once
+    under the capture (which restores every tensor, count and RNG state it
+    touched, so the real first call that follows computes what it would
+    have without the hook).  Lint infrastructure failures never take
+    training down: everything short of a strict-mode violation is a
+    warning."""
+    import warnings
+
+    try:
+        from .analysis import analyze_fn
+
+        report = analyze_fn(step_fn, *args, comm=opt.communicator,
+                            state=state, **kwargs)
+    except Exception as e:  # noqa: BLE001 — a capture oddity, not a user bug
+        warnings.warn(f"CHAINERMN_TPU_LINT: lint pass failed: {e!r}")
+        return None
+    from .observability import reporter as _rep
+    from .observability import step_log as _sl
+
+    rep = _rep.get_reporter()
+    if rep is not None:
+        rep.count("lint/findings", len(report.findings))
+        rep.count("lint/errors", len(report.errors))
+    rec = _sl.current_recorder()
+    if rec is not None:
+        rec.record("lint", rules_run=list(report.rules_run),
+                   findings=[f.summary() for f in report.findings])
+    if report.errors:
+        if mode == "strict":
+            from .analysis import LintError
+
+            raise LintError(report)
+        warnings.warn("CHAINERMN_TPU_LINT found problems in the train "
+                      "step:\n" + report.render())
+    return report
+
+
+def _lint_hook(step_fn, opt, state):
+    """Opt-in lint at the step's first call: ``CHAINERMN_TPU_LINT=1``
+    warns and reports through the Reporter/step log (counters
+    ``lint/findings``, ``lint/errors``; a ``lint`` row), ``=strict`` raises
+    :class:`~.analysis.LintError`.  Unset (or ``0``/``off``/``false``),
+    the step function passes through untouched; after the first call the
+    cost is one list check.  The hooked step's ``lint`` dict holds the
+    first call's report under ``"report"`` and the lint's wall seconds
+    (capture and rules) under ``"seconds"``; the step's wrappers share
+    that dict."""
+    mode = os.environ.get("CHAINERMN_TPU_LINT", "").strip().lower()
+    if mode in ("", "0", "off", "false"):
+        return step_fn
+    done = []
+
+    @functools.wraps(step_fn)
+    def linted(*args, **kwargs):
+        if not done:
+            done.append(True)
+            t0 = time.perf_counter()
+            linted.lint["report"] = _run_first_call_lint(
+                step_fn, opt, state, mode, args, kwargs)
+            linted.lint["seconds"] = time.perf_counter() - t0
+        return step_fn(*args, **kwargs)
+
+    linted.lint = {}
+    return linted
 
 
 def _check_batch_divisibility(batch, n_dev, n_accum=1):
@@ -405,8 +477,9 @@ class MultiNodeOptimizer:
         parameters' device seeded with :func:`rng_seed` of (``rng``, the
         step count, this rank, the microbatch) — per-rank dropout that a
         rerun reproduces."""
-        return _instrument_step(self._build_step(
-            loss_fn, n_accum, loss_scale, overlap, local_batch, has_aux, rng))
+        return _instrument_step(_lint_hook(self._build_step(
+            loss_fn, n_accum, loss_scale, overlap, local_batch, has_aux, rng),
+            self, [self]))
 
     def _build_step(self, loss_fn, n_accum, loss_scale, overlap,
                     local_batch, has_aux, rng):
@@ -551,7 +624,8 @@ class MultiNodeOptimizer:
             self._mean_over_ranks(floating)
             return loss
 
-        return _instrument_step(step_with_state)
+        return _instrument_step(_lint_hook(step_with_state, self,
+                                           [self, model_state]))
 
     def _mean_over_ranks(self, tensors):
         """Replace each tensor by its mean over the ranks, one collective

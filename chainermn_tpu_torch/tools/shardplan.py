@@ -141,36 +141,18 @@ def model_params(name: str):
 
 
 def lint_findings(plan, params) -> list:
-    """The reference's rule R006 over :func:`~..sharding.validate`: one
-    error finding per unmatched leaf and per conflicting spec (shadowed
-    rules stay advisory, in the summary)."""
+    """Rule R006 of :mod:`..analysis` over :func:`~..sharding.validate`
+    (through :func:`~..analysis.analyze_plan`, as the reference's CLI
+    goes): one error finding per unmatched leaf and per conflicting spec
+    (shadowed rules stay advisory, in the summary).  Returns the findings
+    (rule, severity, message, eqn_path, fix_hint) and the validation."""
+    from ..analysis import analyze_plan
     from ..sharding import validate
 
-    v = validate(plan, params)
-    findings = []
-    for path in v.unmatched:
-        findings.append({
-            "rule": "R006", "severity": "error",
-            "message": (f"plan {plan.name!r} has no rule matching parameter "
-                        f"leaf '{path}': resolution raises and the layout "
-                        "is undefined for this model"),
-            "eqn_path": path,
-            "fix_hint": ("add a rule whose regex matches this path, or end "
-                         "the plan with a terminal catch-all "
-                         "PlanRule('replicate', r'.*', P())"),
-        })
-    for c in v.conflicts:
-        findings.append({
-            "rule": "R006", "severity": "error",
-            "message": (f"plan {plan.name!r} rule {c['rule']!r} resolves "
-                        f"leaf '{c['path']}' to a conflicting spec: "
-                        f"{c['reason']}"),
-            "eqn_path": c["path"],
-            "fix_hint": ("fix the rule's PartitionSpec (one mesh axis per "
-                         "entry, no more entries than the leaf has dims, "
-                         "axes that exist on the target mesh)"),
-        })
-    return findings, v
+    report = analyze_plan(plan, params, rules=["R006"])
+    keys = ("rule", "severity", "message", "eqn_path", "fix_hint")
+    findings = [{k: f.summary()[k] for k in keys} for f in report.findings]
+    return findings, validate(plan, params)
 
 
 def lint(models=None, plan_name=None) -> dict:

@@ -222,6 +222,20 @@ of which fails the run when wrong:
    slots hold, so the queue watermark stays crossed for as many fleet
    steps as the backlog lasts, however fast the card decodes; each arm
    logs its longest run of polls at the watermark beside ``k_spike``.
+17. the linter (``chainermn_tpu_torch.analysis``; run between phases 15
+   and 16, on the static defaults): (a) phase 4's LM step
+   built under ``CHAINERMN_TPU_LINT=strict``, whose first call captures
+   the step under a dispatch mode and lints it: clean, R001-R005 run (R002
+   vacuous at world 1), each flash custom op counted 8 times in the
+   capture's census and launched 8 times by it, the batch's taint on
+   every attention layer's flash outputs, then the 7 steps with losses
+   bitwise phase 4's and the median step within 2% of phase 4's (the
+   first call's extra wall, the snapshot's bytes and the peak beside
+   phase 4's); (b) ``python -m chainermn_tpu_torch.tools.lint`` four ways
+   at once: the clean gate on the card (exit 0), the fixtures on two gloo
+   ranks (exit 1, each fixture's rules those of
+   ``tests/golden/torch_lint_fixtures.json``), ``--host`` and ``--self``
+   (exit 0), each run's wall.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 ``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
@@ -229,8 +243,8 @@ Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 line ``{"long_context": ...}``, a JSON line ``{"gspmd": ...}``, a JSON
 line ``{"serving": ...}``, a JSON line ``{"serving_cluster": ...}``, a
 JSON line ``{"serving_fleet": ...}``, a JSON line ``{"host_planes":
-...}``, a JSON line ``{"tuning_fabric": ...}``, the card's ``name,
-power.limit`` line, a JSON line of per-kernel numbers, and ``{"ok":
+...}``, a JSON line ``{"tuning_fabric": ...}``, a JSON line ``{"lint":
+...}``, the card's ``name, power.limit`` line, a JSON line of per-kernel numbers, and ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -4301,6 +4315,244 @@ def phase_tuning_fabric(torch, K, log, card, kind, train, keep):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the linter on the card
+# ---------------------------------------------------------------------------
+
+#: ``tools.lint`` runs of 17b: (name, arguments, expected exit code).
+LINT_CLI = (
+    ("clean_gate", ("--device", "cuda", "--world", "1"), 0),
+    ("fixtures", ("--fixtures", "--device", "cpu", "--world", "2"), 1),
+    ("host", ("--host",), 0),
+    ("self", ("--self",), 0),
+)
+
+
+def lint_lm(torch, K, log, train):
+    """17a: phase 4's LM step built under ``CHAINERMN_TPU_LINT=strict``:
+    the first call lints (a capture of the step, then the rules) and runs;
+    the hooked step's report, the census and the taint of every flash
+    custom op, and the losses and times of phase 4's run."""
+    from chainermn_tpu_torch.analysis import dataflow
+    from chainermn_tpu_torch.analysis.core import LintContext
+
+    # Phase 12's module (kept for phases 13-16) is alive here: peaks are
+    # counted above this allocation, as phase 4's are above its empty one.
+    base = torch.cuda.memory_allocated()
+    os.environ["CHAINERMN_TPU_LINT"] = "strict"
+    try:
+        step, batch, n_tokens = build_lm(torch, log)
+    finally:
+        del os.environ["CHAINERMN_TPU_LINT"]
+    n = N_WARMUP + N_TIMED
+    K.reset_launch_counts()
+    losses, times, peaks = [], [], []
+    for i in range(n):
+        if i < 2:      # the first call (capture + step) and the rest
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(batch)
+        lv = loss.item()
+        times.append(time.perf_counter() - t)
+        losses.append(lv)
+        if i == 0:
+            peaks.append(torch.cuda.max_memory_allocated())
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated())
+    peaks = [pk - base for pk in peaks]
+    peak = max(peaks)
+    lint_s = step.lint["seconds"]
+    launches = dict(K.LAUNCHES)
+    report = step.lint["report"]
+    prog = report.program
+    labels = LintContext(program=prog, comm=step.comm).labels()
+    res = dataflow.propagate(prog, labels, 0)
+    counts = prog.op_counts()
+    census = {name: counts.get(f"chainermn_torch.{name}", 0)
+              for name in KERNELS}
+    tainted = {name: [bool(res.op_out[op.index]) for op in prog.ops
+                      if op.name == f"chainermn_torch.{name}"]
+               for name in KERNELS}
+    torch.distributed.destroy_process_group()
+    del step, batch
+    torch.cuda.empty_cache()
+    med = sorted(times[N_WARMUP:])[N_TIMED // 2] * 1e3
+    bitwise = losses == train["losses"]
+    out = {"rules_run": list(report.rules_run),
+           "rules_skipped": list(report.rules_skipped),
+           "findings": [f.summary() for f in report.findings],
+           "labels": {k: sorted(v) for k, v in labels.items()},
+           "ops": len(prog.ops), "events": len(prog.events),
+           "census": census, "captured_launches": prog.launches,
+           "tainted_layers": {k: sum(v) for k, v in tainted.items()},
+           "snapshot_bytes": prog.snapshot_bytes,
+           "first_call_ms": times[0] * 1e3,
+           "lint_ms": lint_s * 1e3, "step_ms": med,
+           "phase4_step_ms": train["step_ms"],
+           "peak_mem_gib": peak / 2**30,
+           "peak_first_call_gib": peaks[0] / 2**30,
+           "peak_later_steps_gib": peaks[1] / 2**30,
+           "held_before_gib": base / 2**30,
+           "phase4_peak_gib": train["peak_mem_gib"], "losses": losses,
+           "bitwise_phase4": bitwise, "launches": launches}
+    log(f"17a LM under CHAINERMN_TPU_LINT=strict: lint clean {report.ok}; "
+        f"rules_run {out['rules_run']}, rules_skipped "
+        f"{out['rules_skipped']} (R002 ran and is vacuous: every "
+        f"data-parallel label has one rank at world 1, {out['labels']}); "
+        f"{out['ops']} ops, {out['events']} collectives; census {census}, "
+        f"launches of the captured call {prog.launches}; flash outputs "
+        f"carrying the batch's taint, per kernel {out['tainted_layers']}; "
+        f"snapshot {prog.snapshot_bytes / 2**30:.2f} GiB")
+    log(f"17a: first call {times[0] * 1e3:.1f} ms, of which the lint "
+        f"(capture and rules) {lint_s * 1e3:.1f} ms; median step "
+        f"{med:.2f} ms against "
+        f"phase 4's {train['step_ms']:.2f}; peak {peaks[0] / 2**30:.2f} GiB "
+        f"in the first call, {peaks[1] / 2**30:.2f} in steps 1-{n - 1} "
+        f"(phase 4 {train['peak_mem_gib']:.2f}; counted above the "
+        f"{base / 2**30:.2f} GiB earlier phases hold); losses {losses} bitwise "
+        f"phase 4's {bitwise}; launches {launches}")
+    bad = []
+    if not report.ok or report.findings:
+        bad.append(f"the LM step does not lint clean: {report.render()}")
+    if out["rules_run"] != ["R001", "R002", "R003", "R004", "R005"]:
+        bad.append(f"rules_run {out['rules_run']}")
+    for name in KERNELS:
+        if census[name] != 8 or prog.launches[name] != 8:
+            bad.append(f"{name}: census {census[name]}, captured launches "
+                       f"{prog.launches[name]} (want 8 and 8)")
+        if len(tainted[name]) != 8 or not all(tainted[name]):
+            bad.append(f"{name}: tainted outputs per layer {tainted[name]}")
+        if launches[name] != 8 * (n + 1):
+            bad.append(f"{name} launched {launches[name]} times, not "
+                       f"{8 * (n + 1)} (the capture's 8 and {n} steps')")
+    if not bitwise:
+        bad.append(f"losses {losses} != phase 4's {train['losses']}")
+    if abs(med / train["step_ms"] - 1) > 0.02:
+        bad.append(f"median step {med:.2f} ms outside 2% of phase 4's "
+                   f"{train['step_ms']:.2f}")
+    if bad:
+        raise AssertionError("phase 17a: " + "; ".join(bad))
+    return out
+
+
+def lint_cli_start(names, tmp):
+    """Start the ``LINT_CLI`` runs of ``names`` (stdout and stderr to
+    files under ``tmp``): ``{name: (process, waiter, start time, out,
+    err)}``; each waiter thread stamps its process's exit time."""
+    import threading
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = {}
+    for name, args, _ in LINT_CLI:
+        if name in names:
+            out = os.path.join(tmp, f"{name}.out")
+            err = os.path.join(tmp, f"{name}.err")
+            with open(out, "w") as so, open(err, "w") as se:
+                p = subprocess.Popen(
+                    [sys.executable, "-m", "chainermn_tpu_torch.tools.lint",
+                     *args, "--format", "json"], cwd=repo, env=env,
+                    stdout=so, stderr=se)
+            t0 = time.perf_counter()
+            ended = []
+            waiter = threading.Thread(
+                target=lambda p=p, e=ended: (p.wait(),
+                                             e.append(time.perf_counter())),
+                daemon=True)
+            waiter.start()
+            procs[name] = (p, waiter, t0, ended, out, err)
+    return procs
+
+
+def lint_cli_finish(log, procs, timeout=300):
+    """17b's results: each run's exit code against ``LINT_CLI``'s, its
+    wall (start to exit), the fixtures' flagged rules against the port
+    golden; kills what is still running at ``timeout``."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(repo, "tests", "golden",
+                           "torch_lint_fixtures.json")) as f:
+        golden = json.load(f)["flagged_rules"]
+    deadline = time.perf_counter() + timeout
+    try:
+        for p, waiter, *_rest in procs.values():
+            waiter.join(max(0.0, deadline - time.perf_counter()))
+    finally:
+        for p, *_rest in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out, bad = {}, []
+    for name, args, want_rc in LINT_CLI:
+        if name not in procs:
+            continue
+        p, _, t0, ended, out_path, err_path = procs[name]
+        wall = (ended[0] if ended else float("nan")) - t0
+        with open(out_path) as f:
+            stdout = f.read()
+        with open(err_path) as f:
+            stderr = f.read()
+        for line in stderr.splitlines()[-20:]:
+            if not re.search(r"c10d|socket\.cpp|FutureWarning|return func",
+                             line):
+                log("  | " + line)
+        payload = json.loads(stdout) if stdout.strip() else {}
+        targets = payload.get("targets", [])
+        flagged = {t["target"]: sorted({f["rule"] for f in t["findings"]})
+                   for t in targets}
+        out[name] = {"rc": p.returncode, "wall_s": wall,
+                     "targets": len(targets), "self": payload.get("self")}
+        log(f"17b tools.lint {' '.join(args)}: exit {p.returncode} (want "
+            f"{want_rc}), {wall:.1f}s, {len(targets)} targets"
+            + (f", self {payload['self']}" if "self" in payload else ""))
+        if p.returncode != want_rc:
+            bad.append(f"{name} exited {p.returncode}, not {want_rc}: "
+                       f"{stdout[-1500:]} {stderr[-1500:]}")
+        if name == "fixtures":
+            out[name]["equal_golden"] = flagged == golden
+            log(f"17b fixtures flag tests/golden/torch_lint_fixtures.json's "
+                f"rules: {flagged == golden}")
+            if flagged != golden:
+                bad.append(f"fixtures {flagged} != golden {golden}")
+        if name == "clean_gate":
+            out[name]["rules_run"] = sorted(
+                {r for t in targets for r in t["rules_run"]})
+            if len(targets) != 5 or any(flagged.values()):
+                bad.append(f"clean gate: {flagged}")
+    if bad:
+        raise AssertionError("phase 17b: " + "; ".join(bad))
+    return out
+
+
+def phase_lint(torch, K, log, card, train):
+    """Phase 17: (a) the full-width LM step linted at its first call under
+    ``CHAINERMN_TPU_LINT=strict``, (b) ``tools.lint``'s clean gate on the
+    card, its fixtures on two gloo ranks, ``--host`` and ``--self``.  The
+    three CPU runs of (b) start first and run beside (a) and the clean
+    gate (the LM step is the card's pace; the host has room)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = lint_cli_start(("fixtures", "host", "self"), tmp)
+        try:
+            out["lm"] = lint_lm(torch, K, log, train)
+            gate = lint_cli_finish(
+                log, lint_cli_start(("clean_gate",), tmp))
+            out["cli"] = {**gate, **lint_cli_finish(log, cpu)}
+        finally:
+            for p, *_rest in cpu.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 17: {out['wall_s']:.1f}s ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if "--fleet-replica" in argv:
@@ -4379,6 +4631,9 @@ def main(argv=None) -> int:
                                         serving_cluster)
     host_planes = phase_host_planes(torch, K, log, card, train, imagenet_ref)
     del imagenet_ref
+    # Phase 17 runs here, before 16 fills the tune cache: its LM step is
+    # phase 4's on the same static defaults.
+    lint = phase_lint(torch, K, log, card, train)
     tuning_fabric = phase_tuning_fabric(torch, K, log, card, kind, train,
                                         keep)
     del keep
@@ -4410,6 +4665,7 @@ def main(argv=None) -> int:
     print(json.dumps({"serving_fleet": serving_fleet}), flush=True)
     print(json.dumps({"host_planes": host_planes}), flush=True)
     print(json.dumps({"tuning_fabric": tuning_fabric}), flush=True)
+    print(json.dumps({"lint": lint}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

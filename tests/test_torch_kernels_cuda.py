@@ -180,3 +180,45 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         _kernels.flash_fwd(wide, wide, wide, 0.25, True)
     with pytest.raises(ValueError, match="one device"):
         _kernels.flash_fwd(q, q.cpu(), q, 0.25, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_custom_ops_on_the_card(cuda, D):
+    """The kernels as custom ops (``torch.ops.chainermn_torch.flash_*``):
+    an op call gives the wrapper's bytes and counts one launch;
+    ``torch.library.opcheck`` passes on CUDA tensors; ``_FlashBH``'s
+    gradients equal the kernels composed by hand, bitwise (no atomics)."""
+    from chainermn_tpu_torch.ops.flash_attention import _FlashBH
+
+    bf16 = torch.bfloat16
+    g = torch.Generator().manual_seed(D + 1)
+    q, do = (_rand((8, 256, D), bf16, cuda, g) for _ in range(2))
+    k, v = (_rand((4, 256, D), bf16, cuda, g) for _ in range(2))
+    scale = D ** -0.5
+    ops = torch.ops.chainermn_torch
+    before = dict(_kernels.LAUNCHES)
+    o, lse = ops.flash_fwd(q, k, v, scale, True, None, None, None)
+    o_w, lse_w = _kernels.flash_fwd(q, k, v, scale, True)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    dq = ops.flash_dq(q, k, v, do, lse, delta, scale, True, None, None, None)
+    dk, dv = ops.flash_dkv(q, k, v, do, lse, delta, scale, True, None, None,
+                           None)
+    torch.cuda.synchronize()
+    assert {n: _kernels.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}
+    assert torch.equal(o, o_w) and torch.equal(lse, lse_w)
+    for op, args in (
+            (ops.flash_fwd, (q, k, v, scale, True, None, None, None)),
+            (ops.flash_dq, (q, k, v, do, lse, delta, scale, True, None, None,
+                            None)),
+            (ops.flash_dkv, (q, k, v, do, lse, delta, scale, True, None,
+                             None, None))):
+        res = torch.library.opcheck(op, args)
+        assert set(res.values()) == {"SUCCESS"}, (op, res)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, _ = _FlashBH.apply(*leaves, None, None, scale, True, None)
+    out.backward(do)
+    assert torch.equal(out.detach(), o)
+    for leaf, want in zip(leaves, (dq, dk, dv)):
+        assert torch.equal(leaf.grad, want)

@@ -914,3 +914,55 @@ def test_tuning_allreduce_bucket_across_cards(tmp_path):
             for r in range(4)] == [True, False, False, False]
     assert {r["device_size"] for r in res} == {4}
     assert torch.cuda.get_device_name(0) in res[0]["key"]
+
+
+def _lint_cli(*args, timeout=JOIN_TIMEOUT_S):
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    return subprocess.run(
+        [sys.executable, "-m", "chainermn_tpu_torch.tools.lint", *args],
+        capture_output=True, text=True, timeout=timeout, env=env, cwd=repo)
+
+
+@pytest.mark.cuda
+def test_lint_clean_gate_and_fixtures_across_cards():
+    """``tools.lint`` at four NCCL ranks, one a card: the clean gate on the
+    five communicators (both legs of the two-level ones: a 2 x 2
+    topology) exits 0; the R fixtures flag the port golden's rules, R001's
+    cross-rank comparison included (rank 0 alone all-reduces during the
+    capture, which must not hang: no collective leaves a rank while its
+    step is captured)."""
+    import os
+    import time
+
+    _four()
+    t0 = time.perf_counter()
+    clean = _lint_cli("--device", "cuda", "--world", "4", "--format", "json")
+    t_clean = time.perf_counter() - t0
+    assert clean.returncode == 0, clean.stderr[-3000:]
+    payload = json.loads(clean.stdout)
+    assert payload["ok"] and len(payload["targets"]) == 5
+    for t in payload["targets"]:
+        assert t["rules_run"] == ["R001", "R002", "R003", "R004", "R005"]
+    from chainermn_tpu_torch.analysis.fixtures import FIXTURES, \
+        LOCAL_FIXTURES
+
+    names = sorted(n for n in FIXTURES if n not in LOCAL_FIXTURES)
+    t0 = time.perf_counter()
+    fx = _lint_cli("--fixtures", *names, "--device", "cuda", "--world", "4",
+                   "--format", "json")
+    t_fx = time.perf_counter() - t0
+    assert fx.returncode == 1, fx.stderr[-3000:]
+    got = {t["target"]: sorted({f["rule"] for f in t["findings"]})
+           for t in json.loads(fx.stdout)["targets"]}
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "golden", "torch_lint_fixtures.json")
+    with open(golden) as f:
+        want = json.load(f)["flagged_rules"]
+    print(f"lint across four cards: clean gate {t_clean:.1f}s, fixtures "
+          f"{t_fx:.1f}s, {got}")
+    assert got == {n: want[n] for n in names}
