@@ -21,7 +21,11 @@ Two rules bind a capture:
   not run it on the caller's group.  It fills the outputs as a one-rank
   world would (a sum is the local value, a gather repeats it, a
   reduce-scatter keeps this rank's chunk) and returns a completed
-  ``Work``, so a step whose ranks diverge is linted, not hung.  A
+  ``Work``, so a step whose ranks diverge is linted, not hung.  The
+  capture notes the op index at which each such ``Work`` is first
+  waited on, so an ``async_op=True`` collective is read as a pair of
+  issue and wait (:mod:`..observability.collective_audit` reads the
+  compute between them).  A
   ``c10d``/``_c10d_functional`` op this module does not know raises
   :class:`CaptureError`; it is never run.  The values a capture computes
   are therefore not the step's; only its structure is read.
@@ -217,6 +221,12 @@ class CapturedProgram:
     n_leaves: Optional[int] = None
     snapshot_bytes: int = 0
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: event index -> op index of the issue, for each ``c10d`` collective
+    #: issued with ``async_op=True``.
+    async_issues: Dict[int, int] = dataclasses.field(default_factory=dict)
+    #: event index -> the number of ops recorded when its ``Work`` was
+    #: first waited on (ops ``issue + 1 .. wait - 1`` ran in between).
+    waits: Dict[int, int] = dataclasses.field(default_factory=dict)
 
     @property
     def census(self) -> CollectiveCensus:
@@ -509,6 +519,9 @@ class _CaptureMode(TorchDispatchMode):
         self._schemas: Dict[Any, _SchemaInfo] = {}
         self._lock = threading.Lock()
         self.thread_id = thread_id
+        self.async_issues: Dict[int, int] = {}
+        self.waits: Dict[int, int] = {}
+        self._works: Dict[int, Tuple[Any, int]] = {}   # id -> (Work, event)
 
     # -- storage ids ---------------------------------------------------
     def _new_id(self, ptr, t) -> int:
@@ -651,8 +664,12 @@ class _CaptureMode(TorchDispatchMode):
                 root = _group_ranks(pg)[int(b["root_rank"])]
             ev = self._event(name, pg, ins or written, kind, red, True, root)
             _emulate_c10d(base, b, pg)
+            if b.get("async_op"):
+                self.async_issues[ev] = len(self.ops)
             self.record_collective(name, ins, written, (), ev)
-            return _c10d_returns(func, b, _done_work(written))
+            work = _done_work(written)
+            self._works[id(work)] = (work, ev)
+            return _c10d_returns(func, b, work)
         if base in _FUNCTIONAL_PASS:
             out = func(*args, **kwargs)
             self.record(name, func, args, kwargs, out)
@@ -668,6 +685,27 @@ class _CaptureMode(TorchDispatchMode):
         out = _emulate_functional(base, b, pg)
         self.record_collective(name, ins, (), _flat(out), ev)
         return out
+
+
+@contextlib.contextmanager
+def _waits_recorded(mode: _CaptureMode):
+    """Note where each ``Work`` the mode handed out is first waited on
+    (``Work.wait`` is not a dispatched op)."""
+    work_cls = torch._C._distributed_c10d.Work
+    orig = work_cls.wait
+
+    def wait(self, *args, **kwargs):
+        hit = mode._works.get(id(self))
+        if hit is not None and hit[0] is self:
+            with mode._lock:
+                mode.waits.setdefault(hit[1], len(mode.ops))
+        return orig(self, *args, **kwargs)
+
+    work_cls.wait = wait
+    try:
+        yield
+    finally:
+        work_cls.wait = orig
 
 
 # ---------------------------------------------------------------------------
@@ -1033,7 +1071,8 @@ def capture_step(fn, *args, comm=None, state=(), batch_argnum: int = -1,
     mode = _CaptureMode(threading.get_ident())
     launches0 = _launches()
     try:
-        with _telemetry_muted(), _object_plane(mode), mode:
+        with _telemetry_muted(), _object_plane(mode), \
+                _waits_recorded(mode), mode:
             batch_ids = []
             if args:
                 for t in _batch_leaves(args[batch_argnum]):
@@ -1062,7 +1101,8 @@ def capture_step(fn, *args, comm=None, state=(), batch_argnum: int = -1,
         n_leaves=n_leaves if n_leaves is not None else (
             snap.n_leaves or None),
         snapshot_bytes=snap.nbytes,
-        launches={k: launches1[k] - launches0[k] for k in launches1})
+        launches={k: launches1[k] - launches0[k] for k in launches1},
+        async_issues=dict(mode.async_issues), waits=dict(mode.waits))
 
 
 def _after_refs(snap: _Snapshot, state):

@@ -269,12 +269,13 @@ _GEOM = dict(vocab=32, d_model=16, n_heads=4, d_ff=32, n_layers=1,
              max_len=16)
 
 
-def _engine(plan=None, mesh=None, **cfg):
+def _engine(plan=None, mesh=None, n_layers=_GEOM["n_layers"], **cfg):
     from ..models.transformer import TransformerLM
     from ..serving import EngineConfig, InferenceEngine
 
     dev = _device()
-    lm = TransformerLM(**_GEOM, dtype=torch.float32, device=dev, seed=0)
+    lm = TransformerLM(**{**_GEOM, "n_layers": n_layers},
+                       dtype=torch.float32, device=dev, seed=0)
     lm.requires_grad_(False)
     config = EngineConfig(block_size=4, n_blocks=8, max_len=16,
                           max_batch=2, prefix_cache=False, kv_dtype="none",
@@ -340,17 +341,19 @@ def fixture_sharded_prefill() -> dict:
                 args=args, kwargs={}, comm=None, state=state)
 
 
-def fixture_tp_decode() -> dict:
+def fixture_tp_decode(n_layers: int = _GEOM["n_layers"]) -> dict:
     """The decode step under plan ``tp`` over a ``("model",)`` mesh of
     every rank (CLEAN): the DTensor placement's functional collectives
     are in the census, not in R003/R004 (the reference's partitioner
-    inserts its all-reduces after tracing, out of its rules' sight)."""
+    inserts its all-reduces after tracing, out of its rules' sight).
+    ``n_layers`` deepens the model (the per-layer census is the
+    difference of two depths)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     dev = _device()
     mesh = init_device_mesh(dev.type, (dist.get_world_size(),),
                             mesh_dim_names=("model",))
-    eng, state = _engine(plan="tp", mesh=mesh)
+    eng, state = _engine(plan="tp", mesh=mesh, n_layers=n_layers)
     return dict(target="tp_decode", expect=None, fn=eng._decode_run,
                 args=_decode_args(), kwargs={}, comm=None, state=state)
 

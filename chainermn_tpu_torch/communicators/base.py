@@ -502,13 +502,14 @@ class CommunicatorBase:
         rep = _reporter.get_reporter()
         if rep is None:
             return
+        plan = packer.describe()
         rep.count("grad_pack/traces")
-        rep.count("grad_pack/leaves", packer.n_leaves)
-        rep.count("grad_pack/buckets", packer.n_buckets)
-        rep.count("grad_pack/payload_bytes", packer.payload_bytes)
+        rep.count("grad_pack/leaves", plan["n_leaves"])
+        rep.count("grad_pack/buckets", plan["n_buckets"])
+        rep.count("grad_pack/payload_bytes", plan["payload_bytes"])
         rep.count("grad_pack/pad_bytes",
-                  packer.padded_bytes - packer.payload_bytes)
-        rep.histogram_observe("grad_pack/bucket_bytes", packer.bucket_bytes)
+                  plan["padded_bytes"] - plan["payload_bytes"])
+        rep.histogram_observe("grad_pack/bucket_bytes", plan["bucket_bytes"])
         if wire is None:
             return
         quantized = [b for b in packer.buckets if quant.quantizable(b.dtype)]
@@ -551,10 +552,9 @@ class CommunicatorBase:
         world-headroom scale, the narrow sum by
         :meth:`_allreduce_sum_impl`, the fp32 dequant carrying the mean."""
         world = self.size
-        amax = quant.local_amax(buf)
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=self.group)
-        scale = quant.scale_for(amax, wire_dt, world)
-        qsum = self._allreduce_sum_impl(quant.quantize(buf, scale, wire_dt))
+        q, scale = quant.quantize_for_allreduce(buf, wire_dt, self.group,
+                                                world)
+        qsum = self._allreduce_sum_impl(q)
         return quant.dequantize_mean(qsum, scale, world, buf.dtype)
 
     def multi_node_mean(self, grads):

@@ -112,7 +112,9 @@ def build_topology(device: torch.device, inter_size: int | None = None,
         if rank in ranks:
             inter_group = g
     obj_group = None
-    if size > 1 and dist.get_backend() != "gloo":
+    # (A "fake" world, torch's process group without peers, has no
+    # object plane: nothing of its store reaches another process.)
+    if size > 1 and dist.get_backend() not in ("gloo", "fake"):
         obj_group = dist.new_group(backend="gloo")
     return Topology(
         device=device, rank=rank, size=size,

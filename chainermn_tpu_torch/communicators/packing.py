@@ -93,6 +93,35 @@ class Bucket:
     def padded_bytes(self) -> int:
         return self.padded_elems * self.dtype.itemsize
 
+    @property
+    def quantizable(self) -> bool:
+        """Whether a ``comm_dtype`` wire applies to this bucket: floating
+        buckets are quantized, integer ones ride at full precision."""
+        return self.dtype.is_floating_point
+
+    def wire_bytes(self, wire_itemsize: int | None = None) -> int:
+        """Bytes one rank puts on the wire for this bucket: the padded
+        buffer at the wire dtype's width when quantized, plus the fp32
+        amax (one word a bucket; the port sends it in its own MAX
+        all-reduce ahead of the bucket's sum), else the padded bytes."""
+        if wire_itemsize is None or not self.quantizable:
+            return self.padded_bytes
+        return self.padded_elems * wire_itemsize + 4
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """``"float32"``, ``"bfloat16"``, ...: the reference's numpy names."""
+    return str(dtype).replace("torch.", "")
+
+
+def _wire_itemsize(comm_dtype) -> int | None:
+    if comm_dtype is None:
+        return None
+    from . import quant
+
+    wire_dt = quant.wire_dtype(comm_dtype)
+    return None if wire_dt is None else wire_dt.itemsize
+
 
 class GradPacker:
     """Bucketed pack/unpack plan for one list of gradient shapes/dtypes.
@@ -145,6 +174,13 @@ class GradPacker:
         return cls([t.shape for t in tensors], [t.dtype for t in tensors],
                    bucket_bytes)
 
+    @classmethod
+    def for_tree(cls, tree, bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+        """The plan of a mapping (values in order, as
+        :func:`synthetic_grad_tree` makes) or a sequence of tensors."""
+        leaves = list(tree.values()) if isinstance(tree, dict) else list(tree)
+        return cls.for_tensors(leaves, bucket_bytes)
+
     @property
     def n_leaves(self) -> int:
         return len(self.shapes)
@@ -160,6 +196,42 @@ class GradPacker:
     @property
     def padded_bytes(self) -> int:
         return sum(b.padded_bytes for b in self.buckets)
+
+    def wire_bytes(self, comm_dtype=None) -> int:
+        """Bytes one ``allreduce_grad`` puts on the wire per rank: the
+        padded bytes at full precision, or each quantizable bucket at the
+        width of :func:`.quant.wire_dtype` of ``comm_dtype`` (a canonical
+        name) plus its amax word."""
+        itemsize = _wire_itemsize(comm_dtype)
+        return sum(b.wire_bytes(itemsize) for b in self.buckets)
+
+    def describe(self, comm_dtype=None) -> dict:
+        """The plan as JSON (the reference's layout and dtype names; what
+        the ``grad_pack/*`` report publishes).  With a ``comm_dtype`` it
+        adds the wire's bytes, in total and per bucket."""
+        itemsize = _wire_itemsize(comm_dtype)
+        out = {
+            "bucket_bytes": self.bucket_bytes,
+            "n_leaves": self.n_leaves,
+            "n_buckets": self.n_buckets,
+            "payload_bytes": self.payload_bytes,
+            "padded_bytes": self.padded_bytes,
+            "buckets": [
+                {"dtype": _dtype_name(b.dtype),
+                 "n_leaves": len(b.leaf_indices),
+                 "elems": b.elems,
+                 "padded_elems": b.padded_elems,
+                 "padded_bytes": b.padded_bytes}
+                for b in self.buckets
+            ],
+        }
+        if itemsize is not None:
+            out["comm_dtype"] = comm_dtype
+            out["wire_bytes"] = self.wire_bytes(comm_dtype)
+            for spec, b in zip(out["buckets"], self.buckets):
+                spec["quantized"] = b.quantizable
+                spec["wire_bytes"] = b.wire_bytes(itemsize)
+        return out
 
     def pack(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Tensors → one 1-D buffer per bucket (padded with zeros)."""

@@ -35,6 +35,7 @@ pages as int8 with one fp32 scale per written token per KV head
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import numpy as np
@@ -105,6 +106,34 @@ def canonical_kv_dtype(name: Any) -> Optional[str]:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def fp8_supported() -> bool:
+    """Whether this torch casts to and from ``torch.float8_e4m3fn`` (probed
+    once): the quantize and dequantize legs of the fp8 wire.  Whether a
+    process group also SUMS fp8 is the communicator's own probe
+    (:meth:`~.base.CommunicatorBase.wire_dtype`)."""
+    if not hasattr(torch, "float8_e4m3fn"):
+        return False
+    try:
+        x = torch.ones(2).to(torch.float8_e4m3fn)
+        return bool((x.float() == 1).all())
+    except (RuntimeError, TypeError):
+        return False
+
+
+def wire_dtype(comm_dtype: Optional[str]):
+    """Canonical comm dtype name -> the dtype that goes on the wire:
+    ``torch.int8``, ``torch.float8_e4m3fn`` for ``"fp8"`` where
+    :func:`fp8_supported` (int8 otherwise), ``None`` for off."""
+    if comm_dtype is None or comm_dtype == "none":
+        return None
+    if comm_dtype == "int8":
+        return torch.int8
+    if comm_dtype == "fp8":
+        return torch.float8_e4m3fn if fp8_supported() else torch.int8
+    raise ValueError(f"unknown canonical comm_dtype {comm_dtype!r}")
+
+
 def qmax(wire_dt: torch.dtype) -> float:
     """Largest representable magnitude of a wire dtype."""
     if wire_dt == torch.int8:
@@ -150,6 +179,20 @@ def quantize(buf: torch.Tensor, scale: torch.Tensor, wire_dt: torch.dtype,
     if wire_dt == torch.int8:
         x = torch.clamp(torch.round(x), -_INT8_QMAX, _INT8_QMAX)
     return x.to(wire_dt).reshape(buf.shape)
+
+
+def quantize_for_allreduce(buf: torch.Tensor, wire_dt: torch.dtype, group,
+                           world: int, chunk_elems: Optional[int] = None):
+    """The quantized wire's leg before the sum: the local amax, its MAX
+    all-reduce over ``group`` (every rank agrees on the scale), the
+    scale and the cast.  Returns ``(q, scale)``; the caller sums ``q``
+    and finishes with :func:`dequantize_mean`."""
+    import torch.distributed as dist
+
+    amax = local_amax(buf, chunk_elems)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = scale_for(amax, wire_dt, world)
+    return quantize(buf, scale, wire_dt, chunk_elems), scale
 
 
 def dequantize_mean(qsum: torch.Tensor, scale: torch.Tensor, world: int,

@@ -355,7 +355,11 @@ class ElasticSupervisor:
                         # the group's formation can dwarf the
                         # steady-state deadline.
                         monitor.beat(rk.rank)
-                elif code not in (0, EXIT_PREEMPTED):
+                elif code == 0:
+                    # Done: its beats stop on purpose, so its silence
+                    # must not read as a death while a peer still runs.
+                    monitor.forget(rk.rank)
+                elif code != EXIT_PREEMPTED:
                     exited_bad.append((rk.rank, code))
                     monitor.mark_dead(rk.rank)
             hb_dead = monitor.check()

@@ -35,7 +35,15 @@ line is ``final gstep G params_digest XXXXXXXX`` (a crc32 of the
 parameters' bytes).  ``--elastic`` joins the elastic supervisor's world
 (``python -m chainermn_tpu_torch.tools.elastic``; see the MNIST example)
 and ``--step-log PATH`` writes the JSONL step-event log, a row a step
-with its loss (which then reads back once a step).
+with its loss (which then reads back once a step) and an ``hlo_audit``
+row of the step's collectives before the first one.
+
+On the card a run that can be resumed (``--checkpoint-dir`` or
+``--elastic``) trains with deterministic algorithms: cuDNN's autotuner
+off and ``torch.use_deterministic_algorithms``, so a resumed run ends
+where the uninterrupted one does (the reference's resume is bitwise).
+Any other run lets cuDNN pick its fastest algorithms.  ``main`` restores
+the process's settings when it returns.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import time
 import zlib
 
@@ -53,7 +62,8 @@ import torch.nn.functional as F
 import chainermn_tpu_torch as cmn
 from chainermn_tpu_torch.datasets.toy import (SyntheticImageDataset,
                                               batch_iterator)
-from chainermn_tpu_torch.examples.train_mnist import params_digest
+from chainermn_tpu_torch.examples.train_mnist import (log_step_audit,
+                                                      params_digest)
 from chainermn_tpu_torch.extensions import Evaluator
 from chainermn_tpu_torch.models.convnets import AlexNet, GoogLeNet, NiN
 from chainermn_tpu_torch.models.resnet import ResNet18, ResNet50
@@ -78,6 +88,30 @@ def state_digest(tree, crc: int = 0) -> int:
         raw = tree.detach().to("cpu").contiguous().reshape(-1)
         return zlib.crc32(raw.view(torch.uint8).numpy(), crc)
     return zlib.crc32(repr(tree).encode(), crc)
+
+
+@contextlib.contextmanager
+def cuda_algorithms(deterministic: bool):
+    """cuDNN's autotuner (``deterministic=False``), or deterministic
+    algorithms: the autotuner off, cuDNN's deterministic kernels, and
+    ``torch.use_deterministic_algorithms`` (an op without a deterministic
+    implementation warns instead of raising) with cuBLAS's fixed
+    workspace.  The previous settings come back on exit."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    if deterministic:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        cudnn.benchmark, cudnn.deterministic = False, True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    else:
+        cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
 
 
 #: The dropout models' ``rng`` seed (the reference's ``PRNGKey(7)``); the
@@ -113,7 +147,9 @@ def main(argv=None) -> dict:
                         "(0 disables)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save generations here and resume from the newest "
-                        "consistent one on relaunch")
+                        "consistent one on relaunch; on the card the run "
+                        "then trains with deterministic algorithms, so a "
+                        "resumed run ends where an uninterrupted one does")
     p.add_argument("--checkpoint-every", type=int, default=50,
                    help="save a generation every N global steps")
     p.add_argument("--checkpoint-name", default="imagenet",
@@ -122,8 +158,9 @@ def main(argv=None) -> dict:
                    help="join the elastic supervisor's world "
                         "(CHAINERMN_TPU_ELASTIC_* env): heartbeats, chaos "
                         "faults, SIGTERM as preemption, and plan-driven "
-                        "resharding on rescale.  A no-op outside a "
-                        "supervised run.")
+                        "resharding on rescale; on the card, deterministic "
+                        "algorithms as with --checkpoint-dir.  A no-op "
+                        "outside a supervised run.")
     p.add_argument("--step-log", default=None, metavar="PATH",
                    help="write a JSONL step-event log (per-step timing, "
                         "loss, device memory, eval rows); summarize with "
@@ -162,8 +199,11 @@ def main(argv=None) -> dict:
     val = cmn.scatter_dataset(val, comm)
 
     dev = comm.device
+    # A resumable run trains with deterministic algorithms (module doc).
+    algorithms = contextlib.ExitStack()
     if dev.type == "cuda":
-        torch.backends.cudnn.benchmark = True
+        algorithms.enter_context(cuda_algorithms(
+            bool(args.checkpoint_dir or args.elastic)))
     kw = {"image_size": args.image_size} if args.arch == "alex" else {}
     model = ARCHS[args.arch](num_classes=args.num_classes, device=dev,
                              seed=0, **kw)
@@ -295,6 +335,8 @@ def main(argv=None) -> dict:
                             print(f"preempted: checkpoint saved at "
                                   f"iteration {gstep}", flush=True)
                         ctx.exit_preempted()
+                if recorder is not None and gstep == 0:
+                    log_step_audit(recorder, step, batch, comm, [opt, model])
                 losses.append(step(batch))
                 n_seen += batch[0].shape[0] * comm.size
                 n_steps += 1
@@ -336,6 +378,7 @@ def main(argv=None) -> dict:
         if comm.rank == 0:
             print("telemetry: " + json.dumps(agg), flush=True)
     telemetry.close()
+    algorithms.close()
     return {"metrics": metrics, "epoch_losses": epoch_losses,
             "step_losses": step_losses, "img_per_s": img_per_s,
             "gstep": gstep, "params_digest": f"{digest:08x}",

@@ -32,7 +32,9 @@ each rank beats once a step, takes the chaos faults of
 ``CHAINERMN_TPU_CHAOS``, checkpoints and exits with the preemption code
 when any rank got SIGTERM, and re-places a resumed state through the
 ``dp`` sharding plan.  ``--step-log PATH`` writes the JSONL step-event
-log (``python -m chainermn_tpu_torch.tools.obs summarize PATH``).
+log (``python -m chainermn_tpu_torch.tools.obs summarize PATH``), with
+an ``hlo_audit`` row before the first step: the collective census of the
+train step (:func:`chainermn_tpu_torch.observability.audit_fn`).
 """
 
 from __future__ import annotations
@@ -60,6 +62,19 @@ def params_digest(params) -> int:
         raw = p.detach().to("cpu").contiguous().reshape(-1)
         crc = zlib.crc32(raw.view(torch.uint8).numpy(), crc)
     return crc
+
+
+def log_step_audit(recorder, step, batch, comm, state) -> None:
+    """One ``hlo_audit`` row (the collective census of the step the run
+    executes, as the reference's examples log): the unwrapped step runs
+    once under the capture, which restores ``state`` and the RNG."""
+    import inspect
+
+    from chainermn_tpu_torch.observability import audit_fn
+
+    a = audit_fn(inspect.unwrap(step), batch, comm=comm, state=state)
+    recorder.record("hlo_audit", counts=a.counts,
+                    bytes_per_axis=a.bytes_per_axis)
 
 
 def main(argv=None) -> dict:
@@ -100,7 +115,8 @@ def main(argv=None) -> dict:
                         "supervised run.")
     p.add_argument("--step-log", default=None, metavar="PATH",
                    help="write a JSONL step-event log (per-step loss and "
-                        "timing, the train_step span, eval rows); "
+                        "timing, the train_step span, eval rows, the "
+                        "step's collective census as an hlo_audit row); "
                         "summarize with `python -m "
                         "chainermn_tpu_torch.tools.obs summarize PATH`.  "
                         "Point each rank at its own file.")
@@ -238,7 +254,10 @@ def main(argv=None) -> dict:
                         print(f"preempted: checkpoint saved at "
                               f"iteration {gstep}", flush=True)
                     ctx.exit_preempted()
-            last_loss = step(on_device(batch))
+            batch = on_device(batch)
+            if recorder is not None and gstep == 0:
+                log_step_audit(recorder, step, batch, comm, opt)
+            last_loss = step(batch)
             loss_sum = loss_sum + last_loss
             n_trained += 1
             n_seen += batch[0].shape[0] * comm.size

@@ -13,13 +13,27 @@ parts the serving path calls on every step):
 * :class:`MetricsExporter` — a live Prometheus ``/metrics`` endpoint over
   a Reporter or a fleet view;
 * :class:`AnomalyDetector` — latency-regression and goodput-drop alarms
-  over the fleet view (an autoscaler input).
+  over the fleet view (an autoscaler input);
+* :mod:`collective_audit` — the device-independent half of the
+  reference's ``hlo_audit.py``: :class:`CollectiveAudit` (counts, bytes
+  per axis and per collective, async pairs and their overlap) read off
+  one capture of a call, :func:`audit_fn`, :func:`audit_allreduce`,
+  :func:`audit_allreduce_tree` and
+  :func:`assert_two_dimensional_inter_savings`.
 
-``hlo_audit.py`` is XLA's HLO and ``spans.named_scope`` XLA's scopes; they
-have no counterpart.
+The HLO-text half of ``hlo_audit.py`` (async start/done folding, jaxpr
+walks, compiled-HLO parsing) and ``spans.named_scope`` read XLA's
+programs and scopes; they have no counterpart.
 """
 
 from .anomaly import AnomalyDetector  # noqa: F401
+from .collective_audit import (  # noqa: F401
+    CollectiveAudit,
+    assert_two_dimensional_inter_savings,
+    audit_allreduce,
+    audit_allreduce_tree,
+    audit_fn,
+)
 from .exporter import MetricsExporter  # noqa: F401
 from .reporter import (  # noqa: F401
     Reporter,

@@ -23,9 +23,12 @@ request runs alone through :meth:`engine.InferenceEngine.generate` or
 shares continuous-batched iterations, across preemption, prefix-cache
 hits and speculative accept/reject.  Across ranks the engine takes a
 tensor-parallel plan and a sequence-parallel chunk prefill, and
-:mod:`~chainermn_tpu_torch.serving.cluster` routes over several replicas
-in one process; the multi-process tier (service loops, shard groups, the
-autoscaler and their host transport) is next (ROADMAP A.6).
+:mod:`~chainermn_tpu_torch.serving.cluster` routes over several replicas:
+in one process, or across processes through its service loops
+(``serving.cluster.service``), shard groups
+(``serving.cluster.shard_group``) and autoscaler
+(``serving.cluster.autoscaler``) over the host transport of
+:mod:`~chainermn_tpu_torch.communicators.kvtransport`.
 """
 
 from .engine import (  # noqa: F401

@@ -187,10 +187,9 @@ of which fails the run when wrong:
    SGD run under the supervisor with rank 0 SIGTERMed at step 3: the
    grace-window checkpoint, exit code 75, one preemption and no restart,
    the world resumed from iteration 3 and ending within 7b's resume
-   limits of 7b's uninterrupted run (each parameter tensor within the
-   larger of ``RESUME_REL_L2`` of its norm and ``HP_MOVE_RTOL`` of its
-   movement, plus ``HP_RMS_FLOOR`` a value; the reason above them), each
-   incarnation's start-up and img/s; (d)
+   limits of 7b's uninterrupted run (each parameter tensor within
+   ``RESUME_REL_L2`` of its norm: both runs train with deterministic
+   algorithms), each incarnation's start-up and img/s; (d)
    the native host library built (``native_impl() == "csrc"``), its
    CRC32C and ``tree_digest`` equal to the pure-Python values, and
    ``parallel_gather`` timed against ``np.stack`` on one ImageNet batch;
@@ -235,7 +234,20 @@ of which fails the run when wrong:
    at once: the clean gate on the card (exit 0), the fixtures on two gloo
    ranks (exit 1, each fixture's rules those of
    ``tests/golden/torch_lint_fixtures.json``), ``--host`` and ``--self``
-   (exit 0), each run's wall.
+   (exit 0), each run's wall;
+18. the collective audit (``observability.collective_audit``; run after
+   17, on the static defaults): (a) ``audit_fn`` on phase 4's LM step, one
+   capture of the call: its counts and bytes per axis, each flash custom
+   op 8 times in the capture and launched 8 times by it, the audit's wall,
+   the peak beside phase 4's, and the next two real steps' losses bitwise
+   phase 4's first two; (b) ``tests/_torch_audit_worker.py`` in a
+   subprocess (started first): ``audit_allreduce_tree`` of the reference's
+   64-leaf tree at 256 KiB buckets on torch's fake process group of 8 as
+   2 x 4, at rank 0 (a node leader) and rank 1, for the five
+   communicators bucketed, unbucketed, on the int8 wire and overlapped,
+   on CUDA tensors and on CPU ones: every result equal; (c) the MNIST
+   example with ``--step-log`` on the card: one ``hlo_audit`` row, read
+   back by ``tools.obs summarize``.
 
 Standard output ends with a JSON line ``{"train": ...}``, a JSON line
 ``{"dp_surface": ...}``, a JSON line ``{"imagenet": ...}``, a JSON line
@@ -244,7 +256,7 @@ line ``{"long_context": ...}``, a JSON line ``{"gspmd": ...}``, a JSON
 line ``{"serving": ...}``, a JSON line ``{"serving_cluster": ...}``, a
 JSON line ``{"serving_fleet": ...}``, a JSON line ``{"host_planes":
 ...}``, a JSON line ``{"tuning_fabric": ...}``, a JSON line ``{"lint":
-...}``, the card's ``name, power.limit`` line, a JSON line of per-kernel numbers, and ``{"ok":
+...}``, a JSON line ``{"audit": ...}``, the card's ``name, power.limit`` line, a JSON line of per-kernel numbers, and ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -511,7 +523,7 @@ def build_lm(torch, log, zero_stage=0, ce_chunk=FULL["ce_chunk"]):
                                    chunk=ce_chunk)
 
     step = opt.make_train_step(loss_fn)
-    step.model, step.comm = model, comm
+    step.model, step.comm, step.opt = model, comm, opt
     return step, (tokens, labels), B * S
 
 
@@ -934,11 +946,12 @@ R_FLOPS_PER_IMAGE = 24.6e9  # 3 x 2 x ResNet-50's ~4.1 GMACs forward
 # validation images (an npz of seeded noise: the synthetic dataset's 1000
 # class prototypes alone take seconds of host time to draw, each run).
 EX_STEPS, EX_TRAIN, EX_VAL = 3, 768, 256
-# A resumed run against the uninterrupted one: cuDNN's weight-gradient
-# kernels and the max-pool backward may accumulate in another order from
-# run to run, so the two runs' gradients may differ in their last bits; over 6 warm-up steps (lr at
-# most 0.005) that moves no parameter tensor by more than RESUME_REL_L2 of
-# its norm, nor a loss by more than RESUME_LOSS_ATOL.
+# A resumed run against the uninterrupted one: both take the example's
+# resumable path, which trains with deterministic algorithms, and end
+# bitwise on the card; a resume that restored the wrong state, or skipped
+# or repeated a step, moves a parameter tensor by more than RESUME_REL_L2
+# of its norm over 6 warm-up steps (lr at most 0.005), or a loss by more
+# than RESUME_LOSS_ATOL.
 RESUME_REL_L2, RESUME_LOSS_ATOL = 1e-4, 1e-3
 CONVNET_STEPS = 3
 # ZeRO-3 with state against 7a's steps 0-2: the same arithmetic, with the
@@ -1216,7 +1229,14 @@ def phase_imagenet_example(torch, log, card, tmp, keep):
     base = imagenet_args(npz)
     ck = ["--checkpoint-dir", os.path.join(tmp, "ck"),
           "--checkpoint-every", str(EX_STEPS)]
-    plan = [("sgd", ["--epochs", "2"]),
+    # The uninterrupted run takes the resumable path too (a checkpoint
+    # directory it never saves to), so it trains with the same
+    # deterministic algorithms as the stopped and resumed runs; one epoch
+    # with cuDNN's autotuner gives the img/s that costs.
+    whole = ["--checkpoint-dir", os.path.join(tmp, "ck_whole"),
+             "--checkpoint-every", str(100 * EX_STEPS)]
+    plan = [("sgd", whole + ["--epochs", "2"]),
+            ("sgd_autotuned", ["--epochs", "2"]),
             ("lars", ["--optimizer", "lars", "--epochs", "1"]),
             ("stopped", ck + ["--epochs", "1"]),
             ("resumed", ck + ["--epochs", "2"])]
@@ -1238,6 +1258,11 @@ def phase_imagenet_example(torch, log, card, tmp, keep):
             f"{' '.join(f'{x:.1f}' for x in r['img_per_s'])}, {r['metrics']}")
         if not losses or not all(math.isfinite(x) for x in losses):
             failed.append(f"{name} losses {losses}")
+    det, tuned = runs["sgd"]["img_per_s"], runs["sgd_autotuned"]["img_per_s"]
+    summary["deterministic_cost"] = {"img_per_s_deterministic": det,
+                                     "img_per_s_autotuned": tuned}
+    log(f"imagenet deterministic algorithms on {card}: epoch-1 img/s "
+        f"{det[-1]:.1f} against cuDNN's autotuner's {tuned[-1]:.1f}")
     whole, stopped, resumed = runs["sgd"], runs["stopped"], runs["resumed"]
     saved = stopped["saved_digests"].get(EX_STEPS)
     loaded_ok = saved is not None and resumed["loaded_digest"] == saved
@@ -3493,20 +3518,6 @@ def phase_serving_fleet(torch, K, log, card, keep, serving_cluster):
 HP_MNIST = ["--communicator", "pure_nccl", "--epochs", "1",
             "--checkpoint-every", "1"]
 HP_JOB_TIMEOUT_S = 300
-# 15c against 7b's run: its incarnations run in other processes, where
-# cuDNN's benchmark can pick other algorithms, and on the card a
-# zero-initialised BatchNorm bias (norm 1.6e-4, all of it its 6 updates)
-# ended 5.6-5.7% of its norm from 7b's (my chip runs, PR 13, calls 3 and
-# 6); the same preemption on the CPU ends bitwise
-# (tests/test_torch_elastic_soak.py).  A resume that restored the wrong
-# state, or skipped or repeated a step, moves a tensor by a whole step's
-# update, 1/6 of its movement or more.  So each tensor is held to the
-# larger of 7b's RESUME_REL_L2 of its norm and HP_MOVE_RTOL of its
-# movement, plus HP_RMS_FLOOR a value for the BatchNorm biases inside the
-# blocks, whose values are rounding noise (relative L2 up to 0.146 between
-# the runs, call 6).
-HP_MOVE_RTOL = 0.1
-HP_RMS_FLOOR = 1e-10
 # 15a: steps with telemetry off and on, alternating, after the 7.
 HP_AB_PAIRS = 5
 # 15d: native CRC32C against the pure-Python one on this many bytes.
@@ -3708,18 +3719,17 @@ def hp_mnist_supervised(log, tmp):
     return runs
 
 
-def hp_param_distance(got, want, init):
-    """Per tensor: relative L2, and the share of the limit reached: the
-    larger of 7b's RESUME_REL_L2 of the norm and HP_MOVE_RTOL of how far
-    the tensor moved from ``init``, plus HP_RMS_FLOOR a value."""
+def hp_param_distance(got, want):
+    """Per tensor: relative L2, and the share of the limit reached, 7b's
+    RESUME_REL_L2 of the norm (the resumable path trains with
+    deterministic algorithms, so a resume that restores the right state
+    ends bitwise)."""
     rel, share = {}, {}
     for k, v in want.items():
         diff = (got[k].float() - v).norm().item()
         norm = v.norm().item()
         rel[k] = diff / max(norm, 1e-30)
-        share[k] = diff / (max(RESUME_REL_L2 * norm,
-                               HP_MOVE_RTOL * (v - init[k]).norm().item())
-                           + HP_RMS_FLOOR * math.sqrt(v.numel()))
+        share[k] = diff / max(RESUME_REL_L2 * norm, 1e-30)
     worst = max(share, key=share.get)
     return {"worst": worst, "share": share[worst], "rel_at_worst": rel[worst],
             "max_rel": max(rel.values()), "max_rel_at": max(rel, key=rel.get)}
@@ -3731,7 +3741,6 @@ def hp_imagenet_supervised(torch, log, tmp, ref):
     end within the resume limits of 7b's uninterrupted run."""
     from chainermn_tpu_torch import create_communicator
     from chainermn_tpu_torch.extensions import create_multi_node_checkpointer
-    from chainermn_tpu_torch.models.resnet import ResNet50
     from chainermn_tpu_torch.observability.step_log import read_records
 
     npz = imagenet_npz(tmp)
@@ -3760,11 +3769,8 @@ def hp_imagenet_supervised(torch, log, tmp, ref):
     saved, it = create_multi_node_checkpointer(
         "imagenet", comm, path=ck).maybe_load()
     torch.distributed.destroy_process_group()
-    init = {k: v.detach().float() for k, v in ResNet50(
-        num_classes=RESNET["classes"], device="cpu", seed=0
-    ).named_parameters()}
     dist = hp_param_distance(
-        {k: saved["model"][k] for k in ref["params"]}, ref["params"], init)
+        {k: saved["model"][k] for k in ref["params"]}, ref["params"])
     loss_diff = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
     res = {"report": report, "exit_codes": codes, "final_generation": it,
            "losses": losses, "ref_losses": ref["losses"],
@@ -4553,6 +4559,156 @@ def phase_lint(torch, K, log, card, train):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the collective audit
+# ---------------------------------------------------------------------------
+
+AUDIT_WORKER = os.path.join("tests", "_torch_audit_worker.py")
+AUDIT_MNIST = ["--communicator", "pure_nccl", "--epochs", "1"]
+
+
+def audit_worker_start(tmp):
+    """18b's subprocess: the fake world's census of the 64-leaf tree at
+    ranks 0 and 1, on CUDA tensors and on CPU ones."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out, err = (os.path.join(tmp, f"audit.{k}") for k in ("out", "err"))
+    with open(out, "w") as so, open(err, "w") as se:
+        proc = subprocess.Popen(
+            [sys.executable, AUDIT_WORKER, "--device", "cuda,cpu",
+             "--ranks", "0,1", "--no-serving"], cwd=repo, env=env,
+            stdout=so, stderr=se)
+    return proc, time.perf_counter(), out, err
+
+
+def audit_worker_finish(log, started, timeout=300):
+    proc, t0, out, err = started
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        text = f.read()
+    if rc != 0:
+        with open(err) as f:
+            for line in f.read().splitlines()[-20:]:
+                log("  | " + line)
+        raise AssertionError(f"phase 18b: worker exit {rc}")
+    res = json.loads(text.strip().splitlines()[-1])
+    cuda, cpu = res["cuda"]["ranks"], res["cpu"]["ranks"]
+    differ = sorted(f"rank {r} {name} {label}" for r in cpu
+                    for name in cpu[r] for label in cpu[r][name]
+                    if cuda[r][name][label] != cpu[r][name][label])
+    flat = cuda["0"]["flat"]["bucketed"]
+    td = cuda["0"]["two_dimensional"]["bucketed"]
+    hier = {r: cuda[r]["hierarchical"]["bucketed"]["census"]
+            for r in ("0", "1")}
+    over = cuda["0"]["naive"]["overlap"]
+    log(f"18b fake world 2 x 4, 64 leaves at 256 KiB on CUDA tensors: flat "
+        f"{flat['census']} {flat['bytes_per_axis']}; two_dimensional "
+        f"{td['census']} {td['bytes_per_axis']}; hierarchical rank 0 "
+        f"{hier['0']}, rank 1 {hier['1']}; naive overlapped: async pairs "
+        f"{over['async_pairs']}, overlap fraction "
+        f"{over['overlap_fraction']:.3f}; every case equal to the CPU's: "
+        f"{not differ} ({wall:.1f}s)")
+    if differ:
+        raise AssertionError(f"phase 18b: CUDA differs from CPU: {differ}")
+    return {"cuda": res["cuda"], "equal_to_cpu": not differ,
+            "wall_s": wall}
+
+
+def audit_lm(torch, K, log, train):
+    """18a: ``audit_fn`` on phase 4's LM step (one capture of the call,
+    which restores what the step touched), then two real steps whose
+    losses must be phase 4's first two, bitwise."""
+    import inspect
+
+    from chainermn_tpu_torch.observability import audit_fn
+
+    base = torch.cuda.memory_allocated()
+    step, batch, _ = build_lm(torch, log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    a = audit_fn(inspect.unwrap(step), batch, comm=step.comm,
+                 state=step.opt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = a.program.op_counts()
+    ops = {name: counts.get(f"chainermn_torch.{name}", 0)
+           for name in KERNELS}
+    launches = {name: a.program.launches[name] for name in KERNELS}
+    summary = a.summary()
+    losses = [step(batch).item() for _ in range(2)]
+    torch.distributed.destroy_process_group()
+    del step, batch, a
+    torch.cuda.empty_cache()
+    out = {**summary, "flash_ops": ops,
+           "captured_launches": launches, "audit_ms": wall * 1e3,
+           "peak_mem_gib": peak / 2**30,
+           "phase4_peak_gib": train["peak_mem_gib"], "losses": losses,
+           "bitwise_phase4": losses == train["losses"][:2]}
+    log(f"18a audit_fn on phase 4's LM step: {wall * 1e3:.1f} ms; counts "
+        f"{summary['counts']}, bytes per axis {summary['bytes_per_axis']} "
+        f"(world 1: allreduce_grad issues nothing); flash "
+        f"custom ops in the capture {ops}, their launches {launches}; peak "
+        f"{peak / 2**30:.2f} GiB against phase 4's "
+        f"{train['peak_mem_gib']:.2f} (above the {base / 2**30:.2f} GiB "
+        f"earlier phases hold); the next two losses {losses} bitwise phase "
+        f"4's {out['bitwise_phase4']}")
+    return out
+
+
+def phase_audit(torch, K, log, card, train):
+    """Phase 18: 18a, 18b (a subprocess, started first) and 18c."""
+    import tempfile
+
+    from chainermn_tpu_torch.observability.step_log import read_records
+    from chainermn_tpu_torch.tools.obs import summarize
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        worker = audit_worker_start(tmp)
+        try:
+            out["lm"] = audit_lm(torch, K, log, train)
+            path = os.path.join(tmp, "mnist.jsonl")
+            run_mnist(log, AUDIT_MNIST + ["--step-log", path])
+            rows = [r for r in read_records(path)
+                    if r.get("event") == "hlo_audit"]
+            out["mnist"] = {"rows": rows,
+                            "summarize": summarize(read_records(path)).get(
+                                "collectives")}
+        finally:
+            out["fake_world"] = audit_worker_finish(log, worker)
+    lm = out["lm"]
+    log(f"18c mnist --step-log: hlo_audit rows {rows}; tools.obs "
+        f"summarize collectives {out['mnist']['summarize']}")
+    for name in KERNELS:
+        if lm["flash_ops"][name] != 8 or lm["captured_launches"][name] != 8:
+            bad.append(f"18a {name}: {lm['flash_ops'][name]} ops, "
+                       f"{lm['captured_launches'][name]} launches (want 8)")
+    if not lm["bitwise_phase4"]:
+        bad.append(f"18a losses {lm['losses']} after the audit != phase 4's")
+    if len(rows) != 1 or set(rows[0]) < {"counts", "bytes_per_axis"}:
+        bad.append(f"18c hlo_audit rows {rows}")
+    elif out["mnist"]["summarize"] != {
+            "counts": rows[0]["counts"],
+            "bytes_per_axis": rows[0]["bytes_per_axis"]}:
+        bad.append(f"18c summarize {out['mnist']['summarize']}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 18: {out['wall_s']:.1f}s ({card})")
+    if bad:
+        raise AssertionError("phase 18: " + "; ".join(bad))
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if "--fleet-replica" in argv:
@@ -4634,6 +4790,7 @@ def main(argv=None) -> int:
     # Phase 17 runs here, before 16 fills the tune cache: its LM step is
     # phase 4's on the same static defaults.
     lint = phase_lint(torch, K, log, card, train)
+    audit = phase_audit(torch, K, log, card, train)
     tuning_fabric = phase_tuning_fabric(torch, K, log, card, kind, train,
                                         keep)
     del keep
@@ -4666,6 +4823,7 @@ def main(argv=None) -> int:
     print(json.dumps({"host_planes": host_planes}), flush=True)
     print(json.dumps({"tuning_fabric": tuning_fabric}), flush=True)
     print(json.dumps({"lint": lint}), flush=True)
+    print(json.dumps({"audit": audit}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

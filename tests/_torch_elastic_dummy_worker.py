@@ -28,6 +28,9 @@ Modes (rank/incarnation read from CHAINERMN_TPU_ELASTIC_* env):
   and every other rank leaves through the crash hook's exit 13 right
   after, as torch.distributed peers whose collective lost a rank do;
   later incarnations ``ok``.
+* ``rank0_finishes_first`` — every incarnation: rank 0 beats once and
+  exits 0 at once, rank 1 beats for 2 s and exits 0 (a finished rank's
+  silence is no death).
 """
 
 import os
@@ -79,6 +82,12 @@ def main():
             time.sleep(0.01)
         time.sleep(0.01)
         sys.exit(13)
+    if mode == "rank0_finishes_first":
+        for step in range(1 if rank == 0 else 40):
+            if hb:
+                beat(hb, step)
+            time.sleep(0.05)
+        sys.exit(0)
     if mode == "teardown" and first and rank == 0:
         signal.signal(signal.SIGTERM, signal.SIG_IGN)
         step = 0

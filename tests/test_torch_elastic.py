@@ -122,6 +122,18 @@ def test_supervisor_heartbeat_deadline_detects_stall(tmp_path):
     assert any(1 in e["heartbeat_dead"] for e in fails), fails
 
 
+def test_supervisor_lets_a_finished_rank_fall_silent(tmp_path):
+    """Rank 0 exits 0 while rank 1 beats on past the deadline: a rank
+    that finished is no heartbeat death, so nothing restarts."""
+    sup = ElasticSupervisor(
+        _config(tmp_path, "rank0_finishes_first", nproc=2,
+                heartbeat_timeout_s=0.5))
+    report = sup.run()
+    assert report["status"] == "ok", sup.events
+    assert report["restarts"] == 0
+    assert not [e for e in sup.events if e["kind"] == "failure"]
+
+
 def test_supervisor_rescales_to_survivors(tmp_path):
     sup = ElasticSupervisor(
         _config(tmp_path, "crash_rank1_once", nproc=2,

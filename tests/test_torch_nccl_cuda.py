@@ -966,3 +966,41 @@ def test_lint_clean_gate_and_fixtures_across_cards():
     print(f"lint across four cards: clean gate {t_clean:.1f}s, fixtures "
           f"{t_fx:.1f}s, {got}")
     assert got == {n: want[n] for n in names}
+
+
+@pytest.mark.cuda
+def test_collective_audit_across_cards(tmp_path):
+    """The collective audit at four NCCL ranks as 2 x 2, one a card: the
+    audits of ``allreduce_grad`` over the reference's 64-leaf tree (five
+    communicators, bucketed, unbucketed, int8, overlapped) and of phase
+    4's LM step with the overlapped bucket launch equal, rank by rank,
+    torch's fake process group's audits of the same layout on one card;
+    the LM step's ``overlap_fraction`` is printed beside the share of NCCL
+    kernel time a ``torch.profiler`` trace shows under compute kernels."""
+    import os
+    import subprocess
+    import sys
+
+    import _torch_audit_worker as audit_worker
+
+    _four()
+    cards = audit_worker.spawn_ranks(4, tmp_path, (2, 2),
+                                    timeout_s=JOIN_TIMEOUT_S)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run(
+        [sys.executable, os.path.join(repo, "tests", "_torch_audit_worker.py"),
+         "--device", "cuda", "--ranks", "0,1,2,3", "--mesh", "2x2",
+         "--no-serving", "--lm"], capture_output=True, text=True,
+        timeout=JOIN_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=repo),
+        cwd=repo)
+    assert p.returncode == 0, p.stderr[-3000:]
+    fake = json.loads(p.stdout.strip().splitlines()[-1])["ranks"]
+    for r, got in enumerate(cards):
+        lm = got["lm"]
+        print(f"audit across cards, rank {r}: LM {lm['counts']} "
+              f"{lm['bytes_per_axis']}, async pairs {lm['async_pairs']}, "
+              f"overlap_fraction {lm['overlap_fraction']:.3f}, profiled "
+              f"NCCL time under compute {lm['profiler_nccl_overlap']:.3f}")
+        nccl_share = lm.pop("profiler_nccl_overlap")
+        assert 0.0 <= nccl_share <= 1.0
+        assert got == fake[str(r)], r
