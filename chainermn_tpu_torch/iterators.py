@@ -9,7 +9,9 @@
   iterators but stop together when any runs dry.
 * :func:`create_prefetch_iterator`: a background thread drains the host
   iterator and stages each batch on the device (pinned host memory, a
-  copy stream, ``non_blocking`` copies) ahead of the step that uses it.
+  copy stream, ``non_blocking`` copies) ahead of the step that uses it;
+  with telemetry installed the consumer's wait for a staged batch is the
+  span ``data_wait``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .observability import spans as _spans
 
 _STOP = "__chainermn_tpu_stop__"
 
@@ -91,7 +94,9 @@ def create_prefetch_iterator(actual_iterator: Iterable, size: int = 2,
     bounded queue.  Order is kept, an exception in the producer re-raises
     at the consuming ``next()``, and closing or abandoning the iterator
     stops the producer (joined for at most ``close_join_timeout`` seconds,
-    ``None`` for no bound) and drops the staged batches."""
+    ``None`` for no bound) and drops the staged batches.  With a Reporter
+    or StepRecorder installed each wait of the consumer for the next
+    batch is the host span ``data_wait``."""
     if size < 1:
         raise ValueError(f"size must be >= 1, got {size}")
     dev = resolve_device(device)
@@ -142,7 +147,11 @@ def create_prefetch_iterator(actual_iterator: Iterable, size: int = 2,
         t.start()
         try:
             while True:
-                item, extra = q.get()
+                if _spans.telemetry_active():
+                    with _spans.span("data_wait"):
+                        item, extra = q.get()
+                else:
+                    item, extra = q.get()
                 if item is end:
                     if extra is not None:
                         raise extra

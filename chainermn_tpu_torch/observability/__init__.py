@@ -7,7 +7,8 @@ parts the serving path calls on every step):
   rotation, a truncated last line skipped on read) with CUDA allocator
   memory stats;
 * :func:`span` — named host regions on the profiler timeline and in the
-  active sinks;
+  active sinks, with ``device=`` also their time on the device
+  (``device/<name>``, resolved lazily; :func:`flush_device_spans`);
 * :mod:`tracing` — request span trees, the flight recorder, SLO
   burn-rate gauges and the postmortem exports;
 * :class:`MetricsExporter` — a live Prometheus ``/metrics`` endpoint over
@@ -42,7 +43,13 @@ from .reporter import (  # noqa: F401
     report,
     scope,
 )
-from .spans import span, telemetry_active  # noqa: F401
+from .spans import (  # noqa: F401
+    flush_device_spans,
+    span,
+    step_span,
+    telemetry_active,
+    traced_step,
+)
 from .step_log import (  # noqa: F401
     StepRecorder,
     current_recorder,

@@ -78,8 +78,9 @@ class StepRecorder:
     :meth:`step` is the train-loop entry point — it stamps wall time,
     computes the host-side step duration since the previous ``step``
     call, derives throughput from ``items``, attaches any span
-    durations buffered by :func:`chainermn_tpu_torch.observability.span`,
-    and samples device memory every ``mem_every`` steps.
+    durations buffered by :func:`chainermn_tpu_torch.observability.span`
+    (and the device spans resolved since the last row, keyed by the step
+    they belong to), and samples device memory every ``mem_every`` steps.
 
     Use as a context manager (``with StepRecorder(path) as rec:``) to
     also install it as the *current* recorder that spans and the
@@ -110,6 +111,7 @@ class StepRecorder:
         self._prev_t: Optional[float] = None
         self._step_count = 0
         self._pending_spans: dict = {}
+        self._device_spans: dict = {}
 
     # -- write side ----------------------------------------------------
     def record(self, event: str, **fields) -> None:
@@ -148,6 +150,19 @@ class StepRecorder:
                 self._pending_spans.get(name, 0.0) + seconds
             )
 
+    @property
+    def steps(self) -> int:
+        """Step rows written so far: the default ``step`` of the next."""
+        return self._step_count
+
+    def add_device_span(self, step: int, name: str, seconds: float) -> None:
+        """Buffer a resolved device span of step row ``step`` for the next
+        :meth:`step` row's ``device_spans`` field (``{step: {name: s}}``;
+        a pair resolves after the row its host span went into)."""
+        with self._lock:
+            named = self._device_spans.setdefault(str(step), {})
+            named[name] = named.get(name, 0.0) + seconds
+
     def step(self, step: Optional[int] = None, items: Optional[int] = None,
              **fields) -> dict:
         """Record one training step.  Returns the written row (handy for
@@ -166,6 +181,7 @@ class StepRecorder:
             self._step_count += 1
             n = self._step_count
             spans, self._pending_spans = self._pending_spans, {}
+            device, self._device_spans = self._device_spans, {}
         row: dict = {"step": n - 1 if step is None else int(step)}
         if dt is not None:
             row["dt"] = dt
@@ -175,6 +191,8 @@ class StepRecorder:
             row["items"] = int(items)
         if spans:
             row["spans"] = spans
+        if device:
+            row["device_spans"] = device
         if self.mem_every and n % self.mem_every == 0:
             mem = device_memory_stats()
             if mem is not None:

@@ -13,12 +13,17 @@ does, whatever the model's dtype.  The products are plain matrix products
 the product runs in cuBLAS with a float32 output; on a CPU tensor the
 bf16-rounded operands are multiplied in float32, which is the same fp32
 accumulation of exact bf16 products.
+
+Inside a train step that telemetry traces, the forward and backward
+scans each run under the device span ``fused_ce``
+(``observability.step_span``); elsewhere they open none.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..observability.spans import step_span
 from ..tuning.autotune import lookup_ce_chunk
 
 #: Rows per chunk when the caller gives none and the tune cache has no
@@ -153,8 +158,9 @@ class _FusedCESum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hidden, embedding, labels, chunk):
-        loss_sum, n_valid, lse = ce_scan_fwd(hidden, embedding, labels,
-                                             chunk, LocalVocabStrategy())
+        with step_span("fused_ce"):
+            loss_sum, n_valid, lse = ce_scan_fwd(hidden, embedding, labels,
+                                                 chunk, LocalVocabStrategy())
         ctx.save_for_backward(hidden, embedding, labels, lse)
         ctx.chunk = chunk
         ctx.mark_non_differentiable(n_valid)
@@ -163,8 +169,9 @@ class _FusedCESum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_loss, _g_nvalid, g_lse):
         hidden, embedding, labels, lse = ctx.saved_tensors
-        dh, d_emb = ce_scan_bwd(hidden, embedding, labels, lse, g_loss,
-                                g_lse, ctx.chunk, LocalVocabStrategy())
+        with step_span("fused_ce"):
+            dh, d_emb = ce_scan_bwd(hidden, embedding, labels, lse, g_loss,
+                                    g_lse, ctx.chunk, LocalVocabStrategy())
         return dh, d_emb, None, None
 
 

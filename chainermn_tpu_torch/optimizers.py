@@ -122,14 +122,16 @@ def rng_seed(seed: int, step: int, rank: int, micro: int = 0) -> int:
     return (int(words[0]) << 32 | int(words[1])) & ((1 << 63) - 1)
 
 
-def _instrument_step(step_fn):
+def _instrument_step(step_fn, device):
     """Telemetry wrapper for a built train step: when a Reporter or
     StepRecorder is installed (``observability.telemetry_active``) each
-    call runs under ``span("train_step")`` (a profiler annotation and the
-    host's time to return, into both sinks) and bumps the reporter's
+    call runs under ``traced_step(device)``, i.e. ``span("train_step")``
+    (a profiler annotation, the host's time to return and the time on
+    ``device``, into both sinks), inside which the step's phases
+    (``train_step/forward``, ``/backward``, ``/grad_sync``, ``/update``,
+    ``/state_mean``) are device spans too, and bumps the reporter's
     ``train_step_calls`` counter.  With no telemetry installed the cost
-    is one boolean check.  The span times the host's dispatch, as the
-    reference's does: it adds no device synchronisation."""
+    is one boolean check.  Nothing adds a device synchronisation."""
     from .observability import reporter as _rep
     from .observability import spans as _spans
 
@@ -137,7 +139,7 @@ def _instrument_step(step_fn):
     def instrumented(*args, **kwargs):
         if not _spans.telemetry_active():
             return step_fn(*args, **kwargs)
-        with _spans.span("train_step"):
+        with _spans.traced_step(device):
             out = step_fn(*args, **kwargs)
         rep = _rep.get_reporter()
         if rep is not None:
@@ -479,19 +481,25 @@ class MultiNodeOptimizer:
         rerun reproduces."""
         return _instrument_step(_lint_hook(self._build_step(
             loss_fn, n_accum, loss_scale, overlap, local_batch, has_aux, rng),
-            self, [self]))
+            self, [self]), self._device())
+
+    def _device(self) -> torch.device:
+        """The device the step runs on: the parameters'."""
+        if self._params:
+            return self._params[0].device
+        return self.communicator.device
 
     def _build_step(self, loss_fn, n_accum, loss_scale, overlap,
                     local_batch, has_aux, rng):
+        from .observability.spans import step_span
+
         if n_accum < 1:
             raise ValueError(f"n_accum must be >= 1, got {n_accum}")
         comm = self.communicator
         stage = self.zero_stage
         gen = None
         if rng is not None:
-            gen = torch.Generator(
-                device=self._params[0].device if self._params
-                else comm.device)
+            gen = torch.Generator(device=self._device())
         if stage and self._shard is None:
             raise RuntimeError("zero_stage > 0: call init() first")
         hooks = None
@@ -525,52 +533,57 @@ class MultiNodeOptimizer:
                 mb = _tree_map(lambda x: _slice(x, i, n_accum), mine)
                 if hooks is not None and i == n_accum - 1:
                     hooks.arm(n_accum)
-                if gen is None:
-                    loss = loss_fn(mb)
-                else:
-                    gen.manual_seed(
-                        rng_seed(rng, self.step_count, comm.rank, i))
-                    loss = loss_fn(mb, gen)
+                with step_span("train_step/forward"):
+                    if gen is None:
+                        loss = loss_fn(mb)
+                    else:
+                        gen.manual_seed(
+                            rng_seed(rng, self.step_count, comm.rank, i))
+                        loss = loss_fn(mb, gen)
+                    if has_aux:
+                        loss, aux = loss
+                        auxs.append(_tree_map(torch.Tensor.detach, aux))
+                    scaled = loss if loss_scale is None else loss * loss_scale
+                    loss = loss.detach().float()
+                    loss_sum = loss if loss_sum is None else loss_sum + loss
+                with step_span("train_step/backward"):
+                    scaled.backward()
+                if per_micro_scatter:
+                    with step_span("train_step/grad_sync"):
+                        g = self._scatter_grads()
+                        gacc = g if gacc is None else gacc + g
+            with step_span("train_step/grad_sync"):
+                loss = loss_sum / n_accum
                 if has_aux:
-                    loss, aux = loss
-                    auxs.append(_tree_map(torch.Tensor.detach, aux))
-                scaled = loss if loss_scale is None else loss * loss_scale
-                scaled.backward()
-                loss = loss.detach().float()
-                loss_sum = loss if loss_sum is None else loss_sum + loss
-                if per_micro_scatter:
-                    g = self._scatter_grads()
-                    gacc = g if gacc is None else gacc + g
-            loss = loss_sum / n_accum
-            if has_aux:
-                aux = auxs[0] if n_accum == 1 else _stack_aux(auxs)
-            if stage:
-                if per_micro_scatter:
-                    gshard = gacc / n_accum if n_accum > 1 else gacc
+                    aux = auxs[0] if n_accum == 1 else _stack_aux(auxs)
+                if stage:
+                    if per_micro_scatter:
+                        gshard = gacc / n_accum if n_accum > 1 else gacc
+                    else:
+                        if n_accum > 1:
+                            for p in params:
+                                if p.grad is not None:
+                                    p.grad.div_(n_accum)
+                        gshard = self._scatter_grads()
+                elif hooks is not None:
+                    hooks.finish()
+                    grads = [p.grad for p in params]
                 else:
-                    if n_accum > 1:
-                        for p in params:
-                            if p.grad is not None:
-                                p.grad.div_(n_accum)
-                    gshard = self._scatter_grads()
-            elif hooks is not None:
-                hooks.finish()
-                grads = [p.grad for p in params]
-            else:
-                grads = []
-                for p in params:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                    if n_accum > 1:
-                        p.grad.div_(n_accum)
-                    grads.append(p.grad)
-                comm.allreduce_grad(grads)
-            if comm.size > 1:
-                loss = comm.allreduce(loss.reshape(1).to(comm.device),
-                                      "mean")[0]
+                    grads = []
+                    for p in params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                        if n_accum > 1:
+                            p.grad.div_(n_accum)
+                        grads.append(p.grad)
+                    comm.allreduce_grad(grads)
+                if comm.size > 1:
+                    loss = comm.allreduce(loss.reshape(1).to(comm.device),
+                                          "mean")[0]
             self.step_count += 1
-            self._update(params, grads if not stage else None,
-                         gshard if stage else None, loss_scale)
+            with step_span("train_step/update"):
+                self._update(params, grads if not stage else None,
+                             gshard if stage else None, loss_scale)
             return (loss, aux) if has_aux else loss
 
         return step
@@ -614,6 +627,8 @@ class MultiNodeOptimizer:
         ``t`` applies step ``t-1``'s gradients while the buffers update
         from step ``t``.  Gradient accumulation is not exposed, as in the
         reference."""
+        from .observability.spans import step_span
+
         step = self._build_step(loss_fn, 1, None, overlap, local_batch,
                                 False, None)
         floating = [b for b in model_state.buffers()
@@ -621,11 +636,13 @@ class MultiNodeOptimizer:
 
         def step_with_state(batch):
             loss = step(batch)
-            self._mean_over_ranks(floating)
+            with step_span("train_step/state_mean"):
+                self._mean_over_ranks(floating)
             return loss
 
         return _instrument_step(_lint_hook(step_with_state, self,
-                                           [self, model_state]))
+                                           [self, model_state]),
+                                self._device())
 
     def _mean_over_ranks(self, tensors):
         """Replace each tensor by its mean over the ranks, one collective

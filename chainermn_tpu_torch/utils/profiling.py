@@ -3,7 +3,11 @@
 ``trace()`` wraps ``torch.profiler`` (a Chrome/Perfetto trace of the
 host and, on CUDA, of the device's kernels, NCCL collectives included),
 ``annotate()`` stamps named regions with ``record_function``, and
-``StepTimer`` gives the in-loop throughput numbers.
+:func:`slope_time` and :func:`sync` time a loop on the device.  The
+reference's ``StepTimer`` times the host's enqueue under CUDA's
+asynchronous launches and has no counterpart: a step's time on the
+device is ``observability.span(..., device=...)``'s (the train step's
+phases publish it under telemetry).
 :func:`allreduce_bus_bandwidth_gbs` is the ring-allreduce bus-bandwidth
 formula of ``BASELINE.json``'s ``allreduce bus-bw GB/s`` metric.
 
@@ -16,7 +20,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Mapping, Optional
 
 import torch
@@ -114,35 +117,6 @@ def annotate(name: str):
         return torch.profiler.record_function(name)
     except Exception:
         return contextlib.nullcontext()
-
-
-class StepTimer:
-    """Steady-state step timing with warm-up discard: each ``with`` block
-    is one step; the first ``warmup`` are not counted."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self._times = []
-        self._t0: Optional[float] = None
-        self._count = 0
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.warmup:
-            self._times.append(dt)
-        return False
-
-    @property
-    def mean_s(self) -> float:
-        return sum(self._times) / max(len(self._times), 1)
-
-    def throughput(self, items_per_step: int) -> float:
-        return items_per_step / self.mean_s if self._times else 0.0
 
 
 def allreduce_bus_bandwidth_gbs(

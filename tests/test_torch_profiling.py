@@ -1,6 +1,6 @@
 """The port's ``utils/profiling.py`` against the reference's on the CPU:
 the ring-allreduce bus-bandwidth formula (``tests/test_utils.py``'s
-case and a sweep), ``StepTimer``, ``slope_time``/``median_slope`` on
+case and a sweep), ``slope_time``/``median_slope`` on
 runs with a known per-iteration cost and a constant overhead, ``sync``
 returning its tree, and ``trace``/``annotate`` around a step."""
 
@@ -22,17 +22,6 @@ def test_bus_bandwidth_formula():
                          (1e6, 2, 0.0), (1e6, 2, -1.0)]:
         assert profiling.allreduce_bus_bandwidth_gbs(nbytes, n, s) == \
             ref.allreduce_bus_bandwidth_gbs(nbytes, n, s)
-
-
-def test_step_timer():
-    t = profiling.StepTimer(warmup=1)
-    for _ in range(4):
-        with t:
-            pass
-    assert len(t._times) == 3
-    assert t.mean_s >= 0.0
-    assert t.throughput(10) > 0
-    assert profiling.StepTimer().throughput(10) == 0.0
 
 
 def test_slope_time_cancels_a_constant():

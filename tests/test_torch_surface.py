@@ -65,6 +65,10 @@ JAX_ONLY = {
     "named_scope": "jax.named_scope on XLA's op metadata",
     "tree_path_str": "spells jax.tree_util key paths",
     "setup_compilation_cache": "jax's persistent compilation cache",
+    "StepTimer": "a host clock times CUDA's enqueue (the port: "
+                 "span(name, device=...))",
+    "StepTimer.mean_s": "StepTimer's mean",
+    "StepTimer.throughput": "StepTimer's rate",
 }
 
 

@@ -163,8 +163,13 @@ def _counters(run, keys):
 
 @pytest.mark.parametrize("n", [1, 2])
 def test_train_step_span_and_calls_match_reference(port_runs, ref_runs, n):
+    """The reference's one span, ``train_step``; the port also times the
+    step's phases inside it (the reference's step is one XLA program)."""
     port, ref = port_runs[n]["plain"], ref_runs[n]["plain"]
-    assert port["span_names"] == ref["span_names"] == ["train_step"]
+    assert ref["span_names"] == ["train_step"]
+    assert port["span_names"] == ["train_step"] + [
+        f"train_step/{p}" for p in ("backward", "forward", "grad_sync",
+                                    "update")]
     assert _counters(port, ["train_step_calls"]) == \
         _counters(ref, ["train_step_calls"]) == {"train_step_calls": tw.STEPS}
     assert port["summary"]["scalars"]["span/train_step"]["count"] == \
