@@ -28,6 +28,13 @@ and has no counterpart here.
 A train step that telemetry traces runs under :func:`traced_step`, and
 its phases and the kernels it calls open :func:`step_span`: a device
 span inside such a step, a shared null context anywhere else.
+
+Readers that see only a Reporter's counters get two more forms:
+:func:`count_device_time` names device spans whose seconds also go to
+the counters ``device_ms/<name>`` (milliseconds) and
+``device_spans/<name>`` (spans resolved); :func:`count_on_device` adds
+0-d device tensors to counters without synchronising (a non-blocking
+copy that resolves as the device spans do).
 """
 
 from __future__ import annotations
@@ -54,6 +61,11 @@ _step_device = None
 
 _Pair = collections.namedtuple(
     "_Pair", "name index start end reporter recorder step")
+# Device spans whose time also goes to the Reporter's counters.
+_counted: set = set()
+# Counter values on their way from the device: (event, host copy, names,
+# reporter), oldest first.
+_deferred: collections.deque = collections.deque()
 
 
 def telemetry_active() -> bool:
@@ -130,6 +142,11 @@ def traced_step(device):
         _step_device = prev
 
 
+def traced_device():
+    """The device of the train step being traced, or None outside one."""
+    return _step_device
+
+
 def step_span(name: str):
     """``span(name, device=...)`` on the step's device inside
     :func:`traced_step`; a shared null context anywhere else, so that
@@ -173,10 +190,52 @@ def _close_device(opened, name, rep, rec, step):
             sink.count("device_span/dropped", 1)
 
 
+def count_device_time(name: str) -> None:
+    """Also count the device span ``name`` into the Reporter's counters:
+    ``device_ms/<name>`` its milliseconds, ``device_spans/<name>`` one a
+    resolved span."""
+    _counted.add(name)
+
+
+def count_on_device(values) -> None:
+    """Add ``{counter: 0-d tensor}`` to the current Reporter's counters.
+    CUDA values travel by one non-blocking copy to pinned memory and are
+    counted when a later device span, or :func:`flush_device_spans`, finds
+    the copy complete; nothing synchronises.  No Reporter: nothing."""
+    import torch
+
+    rep = _reporter.get_reporter()
+    if rep is None or not values:
+        return
+    names = list(values)
+    vec = torch.stack([values[n].detach().reshape(()).double()
+                       for n in names])
+    if vec.device.type != "cuda":
+        for n, v in zip(names, vec.tolist()):
+            rep.count(n, v)
+        return
+    host = torch.empty(vec.shape, dtype=vec.dtype, pin_memory=True)
+    host.copy_(vec, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    with _lock:
+        _deferred.append((event, host, names, rep))
+    _poll()
+
+
+def _resolve_counts(item):
+    _, host, names, rep = item
+    for n, v in zip(names, host.tolist()):
+        rep.count(n, v)
+
+
 def _publish(name, seconds, rep, rec, step):
     if rep is not None:
         rep.observe(f"device/{name}", seconds)
         rep.histogram_observe(f"device/{name}", seconds)
+        if name in _counted:
+            rep.count(f"device_ms/{name}", seconds * 1e3)
+            rep.count(f"device_spans/{name}", 1)
     if rec is not None:
         rec.add_device_span(step, name, seconds)
 
@@ -195,12 +254,16 @@ def _resolve(pair):
 def _poll():
     """Resolve the pending pairs that have completed, oldest first,
     stopping at the first still running; never waits."""
-    done = []
+    done, counts = [], []
     with _lock:
         while _pending and _pending[0].end.query():
             done.append(_pending.popleft())
+        while _deferred and _deferred[0][0].query():
+            counts.append(_deferred.popleft())
     for pair in done:
         _resolve(pair)
+    for item in counts:
+        _resolve_counts(item)
 
 
 def flush_device_spans() -> int:
@@ -211,7 +274,12 @@ def flush_device_spans() -> int:
     with _lock:
         todo = list(_pending)
         _pending.clear()
+        counts = list(_deferred)
+        _deferred.clear()
     for pair in todo:
         pair.end.synchronize()
         _resolve(pair)
+    for item in counts:
+        item[0].synchronize()
+        _resolve_counts(item)
     return len(todo)

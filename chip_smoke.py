@@ -29,7 +29,13 @@ of which fails the run when wrong:
    only; the same for the LM head's ``ce_fwd`` (every row) and ``ce_bwd``
    (every chunk of ``fused_ce.DEFAULT_CHUNK`` rows) at N 16384, V 50257,
    D 2048, beside the library product and elementwise torch ops they
-   replaced, with the two library products that follow ``ce_bwd``;
+   replaced, with the two library products that follow ``ce_bwd``; and
+   the expert layer's Triton kernels (``moe_permute``, ``moe_combine``,
+   ``moe_combine_bwd``) at one micro-batch of the Trinity-Mini cell (16384
+   tokens, top 8 of 128 experts, 64 held, width 2048): their launches in
+   one ``DroplessMoE`` call, forward and backward (1, 2, 1), each held to
+   its plain twin on that layer's routing and timed beside its bytes'
+   bound;
 6. the rest of the data-parallel surface over NCCL in a fresh process
    group: (a) the MNIST example (``examples/train_mnist.py``, ``main(argv)``
    in-process) at its defaults (unit 1000, global batch 256, 5 epochs,
@@ -308,6 +314,18 @@ CE_KERNELS = {
                "none: chainermn_tpu/ops/fused_ce.py writes the head in jnp"),
 }
 CE_SHAPE = dict(N=16384, V=50257, D=2048)
+
+# The expert layer's kernels (ops/moe_dispatch.py, Triton), timed in phase 5
+# at one micro-batch of the benchmark's Trinity-Mini cell: 16384 tokens, top
+# 8 of 128 experts of which experts 0-63 are held, width 2048, expert width
+# 1024, the published route scale.
+MOE_KERNELS = {
+    name: ("chainermn_tpu_torch/ops/moe_dispatch.py",
+           "none: chainermn_tpu/parallel/moe.py dispatches by einsum")
+    for name in ("moe_permute", "moe_combine", "moe_combine_bwd")
+}
+MOE_SHAPE = dict(T=16384, k=8, experts=128, held=64, d=2048, f=1024,
+                 route_scale=2.826)
 
 
 def flash_launches(K):
@@ -932,6 +950,110 @@ def phase_time_ce(torch, K, log):
                                     for a, b in rel.values()):
         raise AssertionError(f"CE kernels against their twins: {errs}, "
                              f"ce_bwd relative {rel}")
+    return res
+
+
+def phase_time_moe(torch, log, shape=MOE_SHAPE, device="cuda"):
+    """Phase 5's rows for the expert layer's kernels at ``shape``.  One
+    ``DroplessMoE`` call at those widths, forward and backward, must launch
+    each kernel as often as the benchmark's readers count (1, 2, 1); then
+    each kernel, on that layer's own routing plan, is held to its plain
+    twin on the same inputs: ``moe_permute`` and ``moe_combine_bwd``'s
+    row gradients bitwise (a copy, one product a row), ``moe_combine`` and
+    the gate gradients within 1e-2 of the twin's largest entry and 2e-3
+    of its norm (summation order), and timed beside its bound (the bytes
+    ``portbench.sparse_yardstick`` counts, over the HBM peak) and its
+    twin."""
+    from portbench import sparse_yardstick
+    from chainermn_tpu_torch.ops import moe_dispatch as md
+    from chainermn_tpu_torch.parallel.moe import DroplessMoE
+
+    T, k, E = shape["T"], shape["k"], shape["experts"]
+    c, D, F_ = shape["held"], shape["d"], shape["f"]
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(13)
+    layer = DroplessMoE(D, F_, E, k, first=0, count=c,
+                        route_scale=shape["route_scale"],
+                        dtype=torch.bfloat16).to(dev)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, p.shape[-1] ** -0.5, generator=g)
+    x = torch.randn(T, D, device=dev, generator=g)
+    md.warm_up(dev, D, k)
+    md.reset_launch_counts()
+    layer(x.clone().requires_grad_()).float().sum().backward()
+    launches = dict(md.LAUNCHES)
+    log(f"moe layer call (T {T}, top {k} of {E}, {c} held, d {D}, f {F_}), "
+        f"forward and backward: launches {launches}")
+    with torch.no_grad():
+        idx, gates = layer.route(x.to(torch.bfloat16))
+        plan = md.dispatch_plan(idx, 0, c)
+    held = int(plan.sizes.sum())
+    largest = int(plan.sizes.max())
+    xb = x.to(torch.bfloat16)
+    ys = torch.randn(plan.rows, D, device=dev, generator=g).to(torch.bfloat16)
+    dout = torch.randn(T, D, device=dev, generator=g).to(torch.bfloat16)
+    w = torch.rand(plan.rows, device=dev, generator=g)
+    ops = torch.ops.chainermn_torch
+    kern = {
+        "moe_permute": lambda: ops.moe_permute(xb, plan.src),
+        "moe_combine": lambda: ops.moe_combine(ys, plan.pos, gates),
+        "moe_combine_bwd": lambda: ops.moe_combine_bwd(dout, ys, plan.src,
+                                                       w),
+    }
+    plain = {
+        "moe_permute": lambda: md.permute_plain(xb, plan.src),
+        "moe_combine": lambda: md.combine_plain(ys, plan.pos, gates),
+        "moe_combine_bwd": lambda: md.combine_bwd_plain(dout, ys, plan.src,
+                                                        w),
+    }
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        return ((got - want).abs().max().item() / want.abs().max().item(),
+                (got - want).norm().item() / want.norm().item())
+
+    dys, dw = kern["moe_combine_bwd"]()
+    wdys, wdw = plain["moe_combine_bwd"]()
+    checks = {
+        "moe_permute": {"bitwise": torch.equal(kern["moe_permute"](),
+                                               plain["moe_permute"]())},
+        "moe_combine": {"rel": rel(kern["moe_combine"](),
+                                   plain["moe_combine"]())},
+        "moe_combine_bwd": {"bitwise": torch.equal(dys, wdys),
+                            "rel": rel(dw, wdw)},
+    }
+    del dys, dw, wdys, wdw
+    log(f"moe kernels against their twins ({held} held assignments, "
+        f"largest expert {largest}; relative = (max gap / max, norm gap / "
+        f"norm)): {checks}")
+    per_launch = sparse_yardstick.moe_move_launch_bytes(T, held, D)
+    res = {}
+    for name in MOE_KERNELS:
+        t_bytes = per_launch[name] / PEAK_HBM_BYTES * 1e3
+        ms = time_ms(torch, kern[name], 20)
+        res[name] = {
+            "ms": ms, "plain_ms": time_ms(torch, plain[name], 2),
+            "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None,
+            "design": "triton_row", "tflops": 0.0,
+            "bound_share": t_bytes / ms, "launches": launches[name],
+            "max_abs_err": None, "checks": checks[name],
+        }
+        r = res[name]
+        log(f"time {name} [{r['design']}]: {r['ms']:.3f} ms (plain "
+            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.3f} by bytes, "
+            f"{per_launch[name] / 1e6:.1f} MB), {r['bound_share']:.3f} of "
+            f"bound, {r['launches']} launches a layer call")
+    bad = [f"launches {launches}, want {sparse_yardstick.MOE_MOVE_LAUNCHES}"
+           ] if launches != sparse_yardstick.MOE_MOVE_LAUNCHES else []
+    for name, chk in checks.items():
+        if not chk.get("bitwise", True):
+            bad.append(f"{name} not bitwise its twin")
+        a, b = chk.get("rel", (0.0, 0.0))
+        if not (a <= 1e-2 and b <= 2e-3):
+            bad.append(f"{name} relative gap {chk['rel']}")
+    if bad:
+        raise AssertionError("moe kernels: " + "; ".join(bad))
     return res
 
 
@@ -4944,6 +5066,7 @@ def main(argv=None) -> int:
     train = phase_train(torch, K, log, N_WARMUP, N_TIMED)
     times = phase_time(torch, K, log)
     times.update(phase_time_ce(torch, K, log))
+    times.update(phase_time_moe(torch, log))
     dp_surface = {"mnist": phase_mnist(torch, log, card),
                   "lm_zero3": phase_lm_zero3(torch, K, log, train),
                   "card": card}
@@ -4970,11 +5093,13 @@ def main(argv=None) -> int:
     shutil.rmtree(tune_dir, ignore_errors=True)
 
     kernels = []
-    for name, (src, replaces) in {**KERNELS, **CE_KERNELS}.items():
+    for name, (src, replaces) in {**KERNELS, **CE_KERNELS,
+                                  **MOE_KERNELS}.items():
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": train["launches"][name],
+            "replaces": replaces,
+            "launches": t.get("launches", train["launches"].get(name)),
             "max_abs_err": errs.get(name, t.get("max_abs_err")),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
