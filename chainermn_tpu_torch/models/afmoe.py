@@ -17,7 +17,10 @@ u))``, through the hand-written flash kernels
 routing with a selection bias, a shared expert) on the others.  The
 embedding is scaled by ``sqrt(d_model)`` (``mup_enabled``); a final
 RMSNorm feeds the untied head.  Products run in ``dtype`` over fp32
-parameters.
+parameters.  Every RMSNorm is one pass of
+:func:`~chainermn_tpu_torch.ops.rms_norm.rms_norm` (hand-written kernels
+on a card), and on a sliding layer the q and k head norms apply RoPE in
+the same pass.
 """
 
 from __future__ import annotations
@@ -31,32 +34,11 @@ from torch import nn
 
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention
+from ..ops.rms_norm import rms_norm
 from ..parallel import moe as _moe
 from ..parallel.moe import DroplessMoE, SwiGLUFeedForward
 
 SLIDING, FULL = "sliding_attention", "full_attention"
-
-
-class _RMSNormFn(torch.autograd.Function):
-    """``x * rsqrt(mean(x^2) + eps) * w`` in fp32, keeping ``x`` and the
-    row statistic for the backward."""
-
-    @staticmethod
-    def forward(ctx, x, w, eps, out_dtype):
-        xf = x.float()
-        rstd = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
-        ctx.save_for_backward(x, w, rstd)
-        return (xf * rstd * w.float()).to(out_dtype)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x, w, rstd = ctx.saved_tensors
-        xhat = x.float() * rstd
-        dyf = dy.float()
-        dyw = dyf * w.float()
-        dx = rstd * (dyw - xhat * (dyw * xhat).mean(-1, keepdim=True))
-        dw = (dyf * xhat).reshape(-1, x.shape[-1]).sum(0)
-        return dx.to(x.dtype), dw.to(w.dtype), None, None
 
 
 class RMSNorm(nn.Module):
@@ -65,8 +47,10 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(d))
 
-    def forward(self, x, out_dtype=torch.float32):
-        return _RMSNormFn.apply(x, self.weight, self.eps, out_dtype)
+    def forward(self, x, out_dtype=torch.float32, rope=None):
+        """In fp32, the result in ``out_dtype``; ``rope`` (cos, sin) rotates
+        (B, S, H, d) head rows after the norm, in the same pass."""
+        return rms_norm(x, self.weight, self.eps, out_dtype, rope)
 
 
 def rope_tables(S: int, d: int, theta: float, device):
@@ -77,30 +61,6 @@ def rope_tables(S: int, d: int, theta: float, device):
     ang = torch.arange(S, dtype=torch.float64, device=device)[:, None] * inv
     ang = torch.cat([ang, ang], dim=-1)
     return ang.cos().float(), ang.sin().float()
-
-
-def _rotate_half(x):
-    a, b = x.chunk(2, dim=-1)
-    return torch.cat([-b, a], dim=-1)
-
-
-class _RopeFn(torch.autograd.Function):
-    """RoPE on (B, S, H, d) in fp32, the result in the input's dtype; the
-    backward rotates back by the same tables."""
-
-    @staticmethod
-    def forward(ctx, x, cos, sin):
-        ctx.save_for_backward(cos, sin)
-        xf = x.float()
-        return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, dy):
-        cos, sin = ctx.saved_tensors
-        dyf = dy.float()
-        a, b = (dyf * sin).chunk(2, dim=-1)
-        return (dyf * cos + torch.cat([b, -a], dim=-1)).to(dy.dtype), \
-            None, None
 
 
 class GatedAttention(nn.Module):
@@ -131,12 +91,10 @@ class GatedAttention(nn.Module):
         def proj(lin):
             return F.linear(u, lin.weight.to(dt))
 
-        q = self.q_norm(proj(self.query).view(B, S, H, dh), dt)
-        k = self.k_norm(proj(self.key).view(B, S, Hk, dh), dt)
+        rope = rope if self.window is not None else None
+        q = self.q_norm(proj(self.query).view(B, S, H, dh), dt, rope)
+        k = self.k_norm(proj(self.key).view(B, S, Hk, dh), dt, rope)
         v = proj(self.value).view(B, S, Hk, dh)
-        if self.window is not None:
-            cos, sin = (t[:, None] for t in rope)
-            q, k = _RopeFn.apply(q, cos, sin), _RopeFn.apply(k, cos, sin)
         a = flash_attention(q, k, v, causal=True, window=self.window)
         o = a.reshape(B, S, H * dh) * torch.sigmoid(proj(self.gate))
         return F.linear(o, self.out.weight.to(dt))

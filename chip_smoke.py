@@ -35,7 +35,14 @@ of which fails the run when wrong:
    tokens, top 8 of 128 experts, 64 held, width 2048): their launches in
    one ``DroplessMoE`` call, forward and backward (1, 2, 1), each held to
    its plain twin on that layer's routing and timed beside its bytes'
-   bound;
+   bound; and the AFMoE block's one-pass norms (``rms_fwd``,
+   ``rms_rope_fwd``, ``rms_bwd``, ``rms_rope_bwd`` with its ``rms_dw``
+   pass) at the same micro-batch: their launches in one forward and
+   backward of a sliding and a full AFMoE block at the cell's widths,
+   counted a case at a time and asserted; the 2048-wide block norms
+   between fp32 and bf16 both ways and the q and k head norms with RoPE
+   and without, each held to its twin, timed beside its bytes' bound, its
+   twin and ``F.rms_norm`` (a yardstick it must beat);
 6. the rest of the data-parallel surface over NCCL in a fresh process
    group: (a) the MNIST example (``examples/train_mnist.py``, ``main(argv)``
    in-process) at its defaults (unit 1000, global batch 256, 5 epochs,
@@ -326,6 +333,47 @@ MOE_KERNELS = {
 }
 MOE_SHAPE = dict(T=16384, k=8, experts=128, held=64, d=2048, f=1024,
                  route_scale=2.826)
+
+# The AFMoE block's normalisations (ops/rms_norm.py, Triton) in phase 5, at
+# one micro-batch of the Trinity-Mini cell (4 x 4096 tokens): a sliding and a
+# full block at the cell's widths count each case's launches, and each case
+# (kernel, shape, input dtype, output dtype; a backward's output dtype is
+# its dy's) is held to its twin and timed.  The block norms go from the fp32
+# residual to bf16 (input, pre-MLP; the final norm too) and from bf16 back
+# to fp32 (post-attention, post-MLP); the head norms of q (32 heads) and k
+# (4) take RoPE on the sliding layers and none on the full ones.
+NORM_SLICE = dict(B=4, S=4096, d=2048, heads=32, kv_heads=4, d_head=128,
+                  window=2048, d_ff=6144, theta=10000.0, eps=1e-5)
+NORM_CASES = {
+    f"{kern}/{rows}": (kern, shape, in_dt, out_dt)
+    for kern in ("rms_fwd", "rms_bwd")
+    for rows, shape, in_dt, out_dt in (
+        ("2048_f32_bf16", (4, 4096, 2048), "float32", "bfloat16"),
+        ("2048_bf16_f32", (4, 4096, 2048), "bfloat16", "float32"),
+        ("q", (4, 4096, 32, 128), "bfloat16", "bfloat16"),
+        ("k", (4, 4096, 4, 128), "bfloat16", "bfloat16"))
+}
+NORM_CASES.update({
+    f"{kern}/{rows}": (kern, shape, "bfloat16", "bfloat16")
+    for kern in ("rms_rope_fwd", "rms_rope_bwd")
+    for rows, shape in (("q", (4, 4096, 32, 128)), ("k", (4, 4096, 4, 128)))
+})
+#: Launches of each case in one forward and backward of a block of each
+#: kind: four block norms, the q and k head norms with RoPE on a sliding
+#: block and without on a full one.
+NORM_BLOCK_LAUNCHES = {
+    kind: {f"{kern}/{rows}": n
+           for kern in ("rms_fwd", "rms_bwd")
+           for rows, n in (("2048_f32_bf16", 2), ("2048_bf16_f32", 2))}
+    | {f"{head}_{way}/{rows}": 1
+       for way in ("fwd", "bwd") for rows in ("q", "k")}
+    for kind, head in (("sliding", "rms_rope"), ("full", "rms"))
+}
+NORM_KERNELS = {
+    name: ("chainermn_tpu_torch/ops/rms_norm.py",
+           "none: the reference's norms and RoPE are jnp")
+    for name in NORM_CASES
+}
 
 
 def flash_launches(K):
@@ -738,6 +786,36 @@ def time_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
+#: Cycles :func:`device_ms` holds the stream for (~50 ms at the card's
+#: clock) while the host queues the timed calls.
+HOLD_CYCLES = 10 ** 8
+
+
+def device_ms(torch, fn, reps):
+    """Device time of ``fn`` a call: the ``reps`` calls are queued behind a
+    sleep of :data:`HOLD_CYCLES` on the stream, so that the host's launch
+    overhead stays outside the events; raises if queueing them outlasted
+    the sleep.  Phase 5's norm rows use it, whose calls take less device
+    time than host time; the other rows keep :func:`time_ms`, so that their
+    readings stay comparable with those of earlier runs."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    a.record()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued = time.perf_counter() - t
+    b.record()
+    if a.query():
+        raise RuntimeError(f"device_ms: queueing {reps} calls took "
+                           f"{queued * 1e3:.1f} ms, past the sleep")
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def phase_time(torch, K, log):
     import torch.nn.functional as F
 
@@ -1054,6 +1132,235 @@ def phase_time_moe(torch, log, shape=MOE_SHAPE, device="cuda"):
             bad.append(f"{name} relative gap {chk['rel']}")
     if bad:
         raise AssertionError("moe kernels: " + "; ".join(bad))
+    return res
+
+
+def norm_block_launches(torch, log, shape=NORM_SLICE, device="cuda"):
+    """The norm kernels' launches in one forward and backward of a sliding
+    and of a full AFMoE block at ``shape``'s widths, through the model's
+    own modules (bf16 products, the fp32 residual in and out): each custom
+    op call is told apart by kernel, row width, dtypes and heads (q or k),
+    must be one launch of its kernel with one ``rms_dw`` a backward, and
+    the counts must equal :data:`NORM_BLOCK_LAUNCHES`.  Returns the
+    counts a block kind."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from chainermn_tpu_torch.models.afmoe import (AFMoEBlock,
+                                                  GatedAttention,
+                                                  rope_tables)
+    from chainermn_tpu_torch.ops import rms_norm as rn
+    from chainermn_tpu_torch.parallel.moe import SwiGLUFeedForward
+
+    sh = shape
+    B, S, d, dh = sh["B"], sh["S"], sh["d"], sh["d_head"]
+    dev = torch.device(device)
+    short = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    head_rows = {sh["heads"]: "q", sh["kv_heads"]: "k"}
+    calls = {}
+
+    class Census(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "chainermn_torch" and func.__name__ in (
+                    "rms_fwd.default", "rms_bwd.default"):
+                fwd = func.__name__ == "rms_fwd.default"
+                x = args[0] if fwd else args[1]
+                out = args[3] if fwd else args[0].dtype
+                kern = func.__name__.split(".")[0]
+                if len(args) > 4 and args[4] is not None:
+                    kern = kern.replace("rms_", "rms_rope_")
+                rows = (head_rows[x.shape[2]] if x.dim() == 4 else
+                        f"{x.shape[-1]}_{short[x.dtype]}_{short[out]}")
+                key = f"{kern}/{rows}"
+                calls[key] = calls.get(key, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    rope = rope_tables(S, dh, sh["theta"], dev)
+    res, bad = {}, []
+    for kind, window in (("sliding", sh["window"]), ("full", None)):
+        with torch.device(dev):
+            block = AFMoEBlock(
+                GatedAttention(d, sh["heads"], sh["kv_heads"], dh, window,
+                               sh["eps"]),
+                SwiGLUFeedForward(d, sh["d_ff"]), d, sh["eps"])
+        with torch.no_grad():
+            for p in block.parameters():
+                if p.dim() >= 2:
+                    p.normal_(0.0, p.shape[-1] ** -0.5, generator=g)
+        x = torch.randn(B, S, d, device=dev, generator=g).requires_grad_()
+        calls.clear()
+        rn.reset_launch_counts()
+        with Census():
+            block(x, rope).float().sum().backward()
+        torch.cuda.synchronize()
+        launches = dict(rn.LAUNCHES)
+        res[kind] = dict(sorted(calls.items()))
+        log(f"norm launches, one {kind} block (B {B}, S {S}, d {d}, "
+            f"{sh['heads']}/{sh['kv_heads']} heads of {dh}), forward and "
+            f"backward: by case {res[kind]}; LAUNCHES {launches}")
+        if res[kind] != NORM_BLOCK_LAUNCHES[kind]:
+            bad.append(f"{kind} block: {res[kind]}, want "
+                       f"{NORM_BLOCK_LAUNCHES[kind]}")
+        by_kernel = dict.fromkeys(rn.LAUNCHES, 0)
+        for key, n in calls.items():
+            by_kernel[key.split("/")[0]] += n
+        by_kernel["rms_dw"] = sum(n for key, n in calls.items()
+                                  if "_bwd/" in key)
+        if launches != by_kernel:
+            bad.append(f"{kind} block: LAUNCHES {launches} against the op "
+                       f"calls' {by_kernel}")
+        del block, x
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("norm launches: " + "; ".join(bad))
+    return res
+
+
+def phase_time_norm(torch, log, cases=NORM_CASES, device="cuda"):
+    """Phase 5's rows for the AFMoE block's normalisations: their launches
+    a block are counted by :func:`norm_block_launches`; then each case of
+    ``cases`` at the Trinity cell's widths launches its kernel once (the
+    backward with its ``rms_dw`` pass), is held to its plain twin on the
+    same inputs (a bf16 result within 2^-7 of the twin's largest entry and
+    1e-3 of its norm, as one rounding flip allows; fp32 within 1e-5: the
+    row sums' order alone differs) and is timed with :func:`device_ms`
+    (the custom op's and Triton's host overhead, ~0.1 ms a call, would
+    otherwise be timed) beside its bound (the bytes it must move once over
+    the HBM peak: rows in and out, the row statistic, the weight, the
+    tables; the backward's ``dw`` too), its twin and the library's way to
+    the same function, ``F.rms_norm`` in fp32 between casts from and to
+    the case's dtypes (forward, or its autograd backward): a yardstick
+    only, which the kernel must beat.  A case whose bytes fit twice in L2
+    is timed over copies of its inputs in turn, so that each call reads
+    from device memory."""
+    import torch.nn.functional as F
+
+    from chainermn_tpu_torch.models.afmoe import rope_tables
+    from chainermn_tpu_torch.ops import rms_norm as rn
+
+    per_block = norm_block_launches(torch, log, device=device)
+    dev = torch.device(device)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    eps = 1e-5
+    res, bad = {}, []
+    for name, (kname, shape, in_dt, out_dt) in cases.items():
+        in_dt, out_dt = getattr(torch, in_dt), getattr(torch, out_dt)
+        fwd, rope = kname.endswith("fwd"), "rope" in kname
+        op = (torch.ops.chainermn_torch.rms_fwd if fwd
+              else torch.ops.chainermn_torch.rms_bwd)
+        D, n = shape[-1], math.prod(shape) // shape[-1]
+        tables = (rope_tables(shape[1], D, 10000.0, dev) if rope else ())
+        x_bytes, y_bytes = (torch.tensor([], dtype=t).element_size()
+                            for t in (in_dt, out_dt))
+        row_bytes = D * (x_bytes + y_bytes + (0 if fwd else x_bytes))
+        nbytes = (n * row_bytes + n * 4 + D * 4 * (1 if fwd else 2)
+                  + sum(t.numel() * 4 for t in tables))
+        copies = 1 if nbytes >= 2 * l2 else 1 + -(-2 * l2 // nbytes)
+        g = torch.Generator(device=dev).manual_seed(17)
+        sets = []
+        for _ in range(copies):
+            x = (torch.randn(shape, device=dev, generator=g) * 3).to(in_dt)
+            w = 1 + 0.1 * torch.randn(D, device=dev, generator=g)
+            dy = torch.randn(shape, device=dev, generator=g).to(out_dt)
+            rstd = rn.rms_fwd_plain(x, w, eps, out_dt, *tables)[1]
+            if fwd:
+                lib = None
+            else:
+                xl = x.detach().requires_grad_()
+                wl = w.detach().requires_grad_()
+                lib = (xl, wl, F.rms_norm(xl.float(), (D,), wl,
+                                          eps).to(out_dt))
+            sets.append(dict(x=x, w=w, dy=dy, rstd=rstd, lib=lib))
+        turn = [0]
+
+        def take():
+            c = sets[turn[0] % copies]
+            turn[0] += 1
+            return c
+
+        if fwd:
+            def kern(c=None):
+                c = c or take()
+                return op(c["x"], c["w"], eps, out_dt, *tables)
+
+            def plain():
+                c = take()
+                return rn.rms_fwd_plain(c["x"], c["w"], eps, out_dt,
+                                        *tables)
+
+            def library():
+                c = take()
+                return F.rms_norm(c["x"].float(), (D,), c["w"],
+                                  eps).to(out_dt)
+        else:
+            def kern(c=None):
+                c = c or take()
+                return op(c["dy"], c["x"], c["w"], c["rstd"], *tables)
+
+            def plain():
+                c = take()
+                return rn.rms_bwd_plain(c["dy"], c["x"], c["w"], c["rstd"],
+                                        *tables)
+
+            def library():
+                c = take()
+                xl, wl, yl = c["lib"]
+                return torch.autograd.grad(yl, (xl, wl), c["dy"],
+                                           retain_graph=True)
+
+        c0 = sets[0]
+        if fwd:
+            want = rn.rms_fwd_plain(c0["x"], c0["w"], eps, out_dt, *tables)
+        else:
+            want = rn.rms_bwd_plain(c0["dy"], c0["x"], c0["w"], c0["rstd"],
+                                    *tables)
+        rn.reset_launch_counts()
+        got = kern(c0)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in rn.LAUNCHES.items() if v}
+        if launches != {kname: 1, **({} if fwd else {"rms_dw": 1})}:
+            bad.append(f"{name} launched {launches}")
+        gaps = []
+        for a, b in zip(got, want):
+            lim = (2 ** -7, 1e-3) if a.dtype == torch.bfloat16 else (1e-5,
+                                                                     1e-5)
+            a, b = a.float(), b.float()
+            gap = (((a - b).abs().max() / b.abs().max()).item(),
+                   ((a - b).norm() / b.norm()).item())
+            gaps.append(gap)
+            if gap[0] > lim[0] or gap[1] > lim[1]:
+                bad.append(f"{name} output {len(gaps) - 1}: {gap} over "
+                           f"{lim}")
+        del got, want
+        bound = nbytes / PEAK_HBM_BYTES * 1e3
+        ms = device_ms(torch, kern, 20)
+        block_calls = {kind: per_block[kind].get(name, 0)
+                       for kind in per_block}
+        rows = rn.tile(D, row_bytes, rope, rn.PROGRAM_BYTES if fwd
+                       else rn.BWD_BLOCK_BYTES)[0]
+        r = res[name] = {
+            "ms": ms, "plain_ms": device_ms(torch, plain, max(3, copies)),
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": device_ms(torch, library, 20),
+            "design": "triton_rows", "tflops": 0.0,
+            "bound_share": bound / ms, "launches": block_calls,
+            "max_abs_err": max(t for t, _ in gaps), "rel_gaps": gaps,
+            "rows_a_block": rows, "input_copies": copies,
+        }
+        log(f"time {name} [{r['design']}]: {ms:.4f} ms (plain "
+            f"{r['plain_ms']:.3f}, bound {bound:.4f} by bytes, "
+            f"{nbytes / 1e6:.1f} MB, library {r['library_ms']:.4f}), "
+            f"{r['bound_share']:.3f} of bound, {rows} rows a block, "
+            f"{copies} input copies in turn; launches measured a block "
+            f"{block_calls}; against the twin (max gap / max, norm gap / "
+            f"norm) {gaps}")
+        if r["library_ms"] <= ms:
+            bad.append(f"{name}: {ms:.4f} ms, not under the library's "
+                       f"{r['library_ms']:.4f}")
+        del sets, c0, kern, plain, library, take
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("norm kernels: " + "; ".join(bad))
     return res
 
 
@@ -5067,6 +5374,7 @@ def main(argv=None) -> int:
     times = phase_time(torch, K, log)
     times.update(phase_time_ce(torch, K, log))
     times.update(phase_time_moe(torch, log))
+    times.update(phase_time_norm(torch, log))
     dp_surface = {"mnist": phase_mnist(torch, log, card),
                   "lm_zero3": phase_lm_zero3(torch, K, log, train),
                   "card": card}
@@ -5093,8 +5401,8 @@ def main(argv=None) -> int:
     shutil.rmtree(tune_dir, ignore_errors=True)
 
     kernels = []
-    for name, (src, replaces) in {**KERNELS, **CE_KERNELS,
-                                  **MOE_KERNELS}.items():
+    for name, (src, replaces) in {**KERNELS, **CE_KERNELS, **MOE_KERNELS,
+                                  **NORM_KERNELS}.items():
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
